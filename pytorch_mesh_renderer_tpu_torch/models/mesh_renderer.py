@@ -15,6 +15,7 @@ there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -151,7 +152,10 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
             [normals, vertices, diffuse_colors], dim=2)
 
     if not torch.is_tensor(triangles):
-        triangles = torch.as_tensor(triangles, device=device)
+        # A reversed view such as tris[:, ::-1] has negative strides, which
+        # torch.as_tensor refuses; jnp.asarray takes it.
+        triangles = torch.as_tensor(np.ascontiguousarray(triangles),
+                                    device=device)
     elif triangles.device != device:
         raise ValueError(
             f"triangles lie on {triangles.device}, but vertices lie on "

@@ -1,8 +1,11 @@
-"""Hard rasterization + attribute interpolation (batched).
+"""Hard rasterization + attribute interpolation (batched, differentiable).
 
 Port of `pytorch_mesh_renderer_tpu/ops/rasterize.py:20-142`: backend
 dispatch to the fused rasterizer, then the alpha composite
-clamp(2 * sum(barycentrics), 0, 1) over `background_value`.
+clamp(2 * sum(barycentrics), 0, 1) over `background_value`; and
+`rasterize_barycentric`, the barycentric-only entry point (the reference
+kernel's contract). Gradients reach the clip vertices and the attributes
+through the kernels' analytic backward.
 
 Backend choice is by tensor device, never by fallback: under 'auto' a CPU
 tensor takes the plain PyTorch version and a CUDA tensor the CUDA kernel;
@@ -15,6 +18,8 @@ import torch
 
 from .. import config as config_lib
 from . import camera
+from .rasterize_barycentric_cuda import (rasterize_barycentric_cuda,
+                                         rasterize_barycentric_torch)
 from .rasterize_cuda import (rasterize_interpolate_cuda,
                              rasterize_interpolate_torch)
 
@@ -28,6 +33,39 @@ def select_backend(cfg: config_lib.HardRasterizerConfig,
         raise ValueError(
             f"backend='cuda' needs CUDA tensors, got a tensor on {device}")
     return cfg.backend
+
+
+def rasterize_barycentric(clip_space_vertices, triangles, image_width,
+                          image_height, config=None, row_offset=0,
+                          full_height=None):
+    """Rasterize one mesh in clip space to (ids, barycentrics, z-buffer).
+
+    Args:
+      clip_space_vertices: [vertex_count, 4] f32 clip-space positions.
+      triangles: [triangle_count, 3] int32, on the same device.
+      image_width, image_height: ints (the strip size when row_offset /
+        full_height render rows [row_offset, row_offset + image_height) of
+        a full_height-row image).
+
+    Returns:
+      (ids [H, W] i32, barycentrics [H, W, 3] f32, z [H, W] f32);
+      uncovered pixels have id 0, barycentrics 0 and z 1. Gradients flow
+      through the barycentrics only (no vertex-z gradient).
+    """
+    if clip_space_vertices.dim() != 2:
+        raise ValueError("clip_space_vertices must have shape [V, 4].")
+    cfg = config or config_lib.HARD_CONFIG
+    triangles = triangles.to(torch.int32)
+    if select_backend(cfg, clip_space_vertices.device) == "cuda":
+        ids, bc, z = rasterize_barycentric_cuda(
+            clip_space_vertices[None], triangles, image_width, image_height,
+            row_offset=row_offset, full_height=full_height)
+    else:
+        ids, bc, z = rasterize_barycentric_torch(
+            clip_space_vertices[None], triangles, image_width, image_height,
+            row_offset=row_offset, full_height=full_height,
+            triangle_chunk=cfg.triangle_chunk)
+    return ids[0], bc[0], z[0]
 
 
 def rasterize(world_space_vertices, attributes, triangles, camera_matrices,
@@ -62,7 +100,9 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
 
     Per-pixel attributes are the winning triangle's corner attributes
     summed with barycentric weights; alpha = clamp(2 * sum(barycentrics),
-    0, 1) composites them over `background_value`.
+    0, 1) composites them over `background_value`. Gradients reach
+    clip_space_vertices and attributes: the CUDA kernel's backward under
+    the 'cuda' route, the plain analytic backward under 'torch'.
     """
     if not image_width > 0:
         raise ValueError("Image width must be > 0.")

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The build-at-first-use pattern of `pytorch_mesh_renderer_tpu/utils/
-native.py:42-80`, for CUDA: every `csrc/*.cu` is compiled by `nvcc` into
+native.py:42-80`, for CUDA: every `csrc/*.cu` is compiled by its own
+`nvcc` process (all started together), and the objects are linked into
 one shared library with a plain C interface, placed in `_build/` under a
-name keyed by a hash of the sources and flags, and loaded with ctypes.
-Nothing is compiled or loaded when this module is imported.
+name keyed by a hash of the sources (`*.cu` and the shared `*.cuh`) and
+flags, and loaded with ctypes. Nothing is compiled or loaded when this
+module is imported.
 
 There is no fallback: a missing `nvcc` or a failed build raises, with the
 compiler's output in the message.
@@ -31,8 +33,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 # versions do. -Xptxas -v reports registers, shared memory and spills into
 # the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,15 +84,32 @@ def build() -> Build:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    units = [s for s in sources if s.endswith(".cu")]
+    objects = [f"{tmp_path}.{i}.o" for i in range(len(units))]
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path,
-               *[s for s in sources if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        nvcc = _nvcc()
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(units, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        log = ""
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): "
+                              f"{' '.join(cmd)}")
+        if failed:
+            raise RuntimeError("\n".join(failed) + "\n" + log)
+        link = [nvcc, "-shared", "-o", tmp_path, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{log}")
+                f"nvcc link failed (exit {proc.returncode}): "
+                f"{' '.join(link)}\n{log}")
         # Atomic renames, so a concurrent build never loads a partial
         # library.
         with open(tmp_path + ".log", "w") as f:
@@ -99,7 +117,7 @@ def build() -> Build:
         os.replace(tmp_path + ".log", log_path)
         os.replace(tmp_path, path)
     finally:
-        for leftover in (tmp_path, tmp_path + ".log"):
+        for leftover in (tmp_path, tmp_path + ".log", *objects):
             if os.path.exists(leftover):
                 os.remove(leftover)
     return Build(path, log)
@@ -112,7 +130,13 @@ def load_library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rasterize_fused_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, f32,
                                                                 ptr]
-    lib.rasterize_fused_fwd.restype = i32
+    lib.rasterize_fused_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.rasterize_bary_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32,
+                                                               ptr]
+    lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
+                  lib.rasterize_bary_fwd, lib.rasterize_bary_bwd):
+        entry.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,8 +1,9 @@
-"""Golden-image comparison and a stdlib PNG reader.
+"""Golden-image comparison, Jacobian checks and a stdlib PNG reader.
 
-Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:21-79`
+Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:21-140`
 (`images_are_near`, `expect_image_file_and_render_are_near`: the same
-0.1%-of-pixels outlier budget at a 0.01 channel threshold). PNGs are read
+0.1%-of-pixels outlier budget at a 0.01 channel threshold; the analytical
+and central-difference Jacobians and their outlier comparator). PNGs are read
 with `read_png`, a reader built on zlib and struct alone, so golden images
 can be checked where imageio is not installed.
 """
@@ -137,3 +138,78 @@ def expect_image_file_and_render_are_near(baseline_path, result_image,
             f"{baseline_path} does not match. ({outlier_fraction} of pixels "
             f"are outliers, {max_outlier_fraction} is allowed.)")
     return outlier_fraction
+
+
+# One-hot cotangents per batched backward pass of get_analytical_jacobian:
+# bounds the vmapped backward's memory on the largest Jacobian tested
+# (4,704 outputs).
+_JACOBIAN_ROWS_PER_PASS = 512
+
+
+def get_analytical_jacobian(fn, x):
+    """Jacobian of fn at x by reverse mode, laid out [x.size, out.size].
+
+    Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:82-90`. The
+    output's one-hot cotangents go through autograd a block at a time
+    (`is_grads_batched`, which vmaps the backward).
+    """
+    x = x.detach().to(torch.float32).requires_grad_(True)
+    out = fn(x).reshape(-1)
+    rows = []
+    for start in range(0, out.numel(), _JACOBIAN_ROWS_PER_PASS):
+        stop = min(start + _JACOBIAN_ROWS_PER_PASS, out.numel())
+        onehot = torch.zeros(stop - start, out.numel(), dtype=out.dtype)
+        onehot[torch.arange(stop - start), torch.arange(start, stop)] = 1.0
+        (grad,) = torch.autograd.grad(out, x, onehot, retain_graph=True,
+                                      is_grads_batched=True)
+        rows.append(grad.reshape(stop - start, -1))
+    return torch.cat(rows).T.numpy()
+
+
+def get_numerical_jacobian(fn, x, eps=1e-3):
+    """Central-difference Jacobian, laid out [x.size, out.size].
+
+    Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:93-112`: x is
+    perturbed in float64 and handed to fn as float32.
+    """
+    x = np.array(torch.as_tensor(x).detach(), np.float64)
+    flat = x.reshape(-1)
+
+    def evaluate():
+        with torch.no_grad():
+            out = fn(torch.from_numpy(x.astype(np.float32)))
+        return out.numpy().astype(np.float64).reshape(-1)
+
+    jacobian = np.zeros([x.size, evaluate().size], np.float64)
+    for i in range(flat.size):
+        orig = flat[i]
+        flat[i] = orig - eps
+        outa = evaluate()
+        flat[i] = orig + eps
+        outb = evaluate()
+        flat[i] = orig
+        jacobian[i] = (outb - outa) / (2 * eps)
+    return jacobian
+
+
+def check_jacobians_are_nearly_equal(theoretical, numerical,
+                                     outlier_relative_error_threshold,
+                                     max_outlier_fraction):
+    """Compare Jacobians allowing a fraction of relative-error outliers.
+
+    Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:115-138`, with
+    its comparator: the relative error divides by |numerical|, so entries
+    where the numerical Jacobian is zero and the analytical one is not
+    count as outliers. Returns (matched: bool, message: str).
+    """
+    theoretical = np.asarray(theoretical, np.float64)
+    numerical = np.asarray(numerical, np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.abs(numerical - theoretical) / np.abs(numerical)
+    outliers = rel > outlier_relative_error_threshold
+    outlier_fraction = (
+        np.count_nonzero(outliers) / np.prod(numerical.shape[:2]))
+    matched = outlier_fraction <= max_outlier_fraction
+    message = ("%f of gradients are relative outliers, max allowed %f" %
+               (outlier_fraction, max_outlier_fraction))
+    return matched, message

@@ -1,6 +1,7 @@
 """PyTorch port: the fused rasterizer (K1) — plain version vs the JAX
 package, goldens and contracts. The CUDA kernel itself is held against the
-plain version on the card by tests/test_torch_cuda.py.
+plain version on the card by tests/test_torch_cuda.py; the backward is
+tested in tests/test_torch_rasterize_grad.py.
 
 Tolerances, with their reasons:
   * vs the dense XLA spec (`rasterize_barycentric_xla`) on the 64x48 cube:
@@ -119,7 +120,7 @@ def test_plain_matches_pallas_kernel(attr_count):
 
 def test_packing_matches_jax_packing():
     clip, tris, _ = _random_scene()
-    ours = rc.pack_triangles(_t(clip), _t(tris)).numpy()
+    ours = rc.pack_rows(_t(clip), _t(tris), False)[0].numpy()
     theirs = np.stack([np.asarray(_pack_triangle_data(
         jnp.asarray(c), jnp.asarray(tris), 1)) for c in clip])
     assert ours.shape == (2, 30, rc.TRI_COLS)
@@ -246,16 +247,3 @@ def test_wrappers_validate_inputs():
             fn(_t(clip), _t(attrs)[:, :5], _t(tris), 48, 40)
         with pytest.raises(ValueError, match="different devices"):
             fn(_t(clip), _t(attrs).to("meta"), _t(tris), 48, 40)
-
-
-def test_backward_raises_not_implemented():
-    clip, tris, attrs = _random_scene()
-    clip_t = _t(clip).requires_grad_(True)
-    _, bc, attr_img = rc.rasterize_interpolate_torch(clip_t, _t(attrs),
-                                                     _t(tris), 48, 40)
-    with pytest.raises(NotImplementedError, match="K2"):
-        (bc.sum() + attr_img.sum()).backward()
-    out = rasterize_ops.rasterize_clip_space(clip_t, _t(attrs), _t(tris), 48,
-                                             40, torch.zeros(9))
-    with pytest.raises(NotImplementedError, match="ported next"):
-        out.sum().backward()
