@@ -35,14 +35,47 @@ and runs these phases, printing one line or more per phase:
   7. times   — CUDA-event medians: each kernel vs its plain version, the
                forward render, and the training step.
 
-Then it prints the kernel summary as one JSON line and, last, the device
-line `{"ok": true, "device": {...}}`. Any failed phase raises and the exit
+The soft (SoftRas) renderer's phases follow:
+
+  8. soft-kernel — K5-K8 vs their plain versions: the 16x16 two-triangle
+               scene, the cube, random scenes with 1 and 3 lights, two row
+               strips against the full image, the zero-triangle mesh, the
+               256x256 batch-4 teapot and a sphere of 49,298 triangles at
+               64x64 in one launch per kernel. Forward: rgb within 2e-5 abs
+               + 1e-4 rel, alpha within 1e-6, K5's alpha equal to K7's bit
+               for bit. Backward, under seeded cotangents with rgb and alpha
+               parts: within 1e-4 of each plain tensor's max |value|, the
+               table gradient's per group of columns that come from one
+               input of the packing (clip, world, normals, colours).
+  9. soft-main — `soft_mesh_renderer.render` on the teapot at 256x256 batch
+               4 with 2 lights, counting K7 launches, against the plain
+               route.
+ 10. soft-train — bench.py's soft step (render, loss mean(alpha^2),
+               backward to the vertices) at 128x128 and 256x256 batch 4,
+               counting K7/K8, and its silhouette step, counting K5/K6;
+               each against the plain step (1e-4 of max |grad|).
+ 11. fit     — the flagship cow fit (examples/fit_shape_multiview.py at
+               docs/flagship/README.md's settings, 128x128, 4 views, sphere
+               resolution 24): 100 Adam steps through K5/K6, whose loss
+               must fall; 10 steps with both routes in lockstep (losses
+               within 1e-4 relative, gradients within 1e-4 of max |grad|);
+               10 separate plain steps, their drift reported.
+ 12. soft-times — CUDA-event medians of each soft kernel vs its plain
+               version, the soft render, the soft steps, the silhouette
+               step and the fit step, and device time by kernel from
+               torch.profiler.
+
+Then it prints the kernel summary as one JSON line (with each kernel's
+bound: the larger of its bytes over 3.35 TB/s and its fp32 operations over
+67 TFLOP/s, counted from this run's inputs) and, last, the device line
+`{"ok": true, "device": {...}}`. Any failed phase raises and the exit
 code is non-zero; without a CUDA device it exits non-zero before printing
 any result.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,13 +84,32 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "pytorch_mesh_renderer_tpu_torch/csrc/"
 PALLAS = "pytorch_mesh_renderer_tpu/ops/rasterize_pallas.py:"
+SOFT_PALLAS = "pytorch_mesh_renderer_tpu/ops/soft_rasterize_pallas.py:"
 # name -> (source, the TPU kernel it replaces).
 KERNELS = {
     "rasterize_fused_fwd": (CSRC + "rasterize_fused_fwd.cu", PALLAS + "1059"),
     "rasterize_fused_bwd": (CSRC + "rasterize_fused_bwd.cu", PALLAS + "1282"),
     "rasterize_bary_fwd": (CSRC + "rasterize_bary_fwd.cu", PALLAS + "348"),
     "rasterize_bary_bwd": (CSRC + "rasterize_bary_bwd.cu", PALLAS + "676"),
+    "soft_sil_fwd": (CSRC + "soft_sil_fwd.cu", SOFT_PALLAS + "835"),
+    "soft_sil_bwd": (CSRC + "soft_sil_bwd.cu", SOFT_PALLAS + "881"),
+    "soft_fwd": (CSRC + "soft_fwd.cu", SOFT_PALLAS + "422"),
+    "soft_bwd": (CSRC + "soft_bwd.cu", SOFT_PALLAS + "496"),
 }
+# The card's published peaks (H100 SXM data sheet, at 700 W): device
+# memory bytes/s and fp32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# fp32 operations per (pixel, triangle) pair, read off the kernel bodies.
+# Hard kernels: 3 edge functions (12), the z interpolation and depth test
+# (6). Soft kernels: bench.py:321-348's constants for the full forward
+# (K7) and backward (K8), per light L; the silhouette forward (K5) keeps
+# their geometry terms (barycentrics 12, segment distances 42, edge pick /
+# perspective / L1 27, sigmoid / z 26, the product 2) and its backward
+# (K6) adds the coverage chain and the six edge columns (~60).
+HARD_OPS_PER_PAIR = 18
+SOFT_OPS_PER_PAIR = {"soft_fwd": (215, 23), "soft_bwd": (645, 63),
+                     "soft_sil_fwd": (110, 0), "soft_sil_bwd": (170, 0)}
 # Forward kernels vs plain versions: both run the same fp32 operations in
 # the same order (the kernels are built with --fmad=false), so they should
 # agree to the last bit; 1e-6 leaves room for nothing but that.
@@ -70,6 +122,17 @@ GRAD_RTOL = 1e-5
 # relative to the plain gradient's max |value|.
 TRAIN_RTOL = 1e-4
 TEAPOT_SIZE, TEAPOT_BATCH = 256, 4
+# Table columns each soft kernel reads (csrc/soft_common.cuh): K5 and K6
+# the geometry phase's 29 (0-17, 21-25, 53-58), K7 and K8 all but the clip
+# w (18-20). K6 and K8 write the whole [B, T, 59] gradient table. The soft
+# kernels' gates against their plain versions are utils/test_utils'
+# (SOFT_RGB_ATOL, SOFT_ALPHA_ATOL, SOFT_GRAD_RTOL, ...).
+SOFT_COLS_READ = {"soft_fwd": 56, "soft_bwd": 56, "soft_sil_fwd": 29,
+                  "soft_sil_bwd": 29}
+# The flagship fit's log at epoch 99 (docs/flagship/trajectory.log:3),
+# printed beside this run's numbers, not gated: the TPU run reduced its
+# gradients at bf16 precision.
+FLAGSHIP_EPOCH_99 = {"loss": 0.05465, "iou": 0.7842}
 
 CUBE_VERTICES = [[-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1],
                  [1, -1, 1], [1, -1, -1], [1, 1, -1], [1, 1, 1]]
@@ -108,6 +171,576 @@ def cuda_time_ms(fn, iters, windows=5, warmup=3):
         end.synchronize()
         per_call.append(start.elapsed_time(end) / iters)
     return statistics.median(per_call)
+
+
+def grad_error(name, label, kernel, plain, rtol):
+    """(max abs error, max |plain|) of a backward kernel's tensor against
+    its plain version's; fails above rtol x max |plain| or if not finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    if kernel.shape != plain.shape:
+        raise AssertionError(f"{name}: {label} shape {kernel.shape} vs "
+                             f"{plain.shape}")
+    if not bool(torch.isfinite(kernel).all()):
+        raise AssertionError(f"{name}: {label} is not finite")
+    err = float((kernel - plain).abs().max()) if plain.numel() else 0.0
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    if not err <= rtol * scale:
+        raise AssertionError(f"{name}: {label} max abs {err} > {rtol} x "
+                             f"{scale}")
+    return err, scale
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least time in ms, what bounds it) for moving n_bytes through device
+    memory and doing n_ops fp32 operations, at the card's peaks."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def pixel_pairs(x_lo, x_hi, y_lo, y_hi, keep, width, height):
+    """Sum over triangles of the pixel centres inside [x_lo, x_hi] x
+    [y_lo, y_hi] (NDC, [B, T] each) where keep: the (pixel, triangle) pairs
+    a rasterizer must test."""
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+
+    px, py = sc.pixel_centers(width, height, 0, height, keep.device)
+    py = py.flip(0)  # ascending, as searchsorted wants
+
+    def inside(centres, lo, hi):
+        return (torch.searchsorted(centres, hi.contiguous(), right=True)
+                - torch.searchsorted(centres, lo.contiguous())).clamp(min=0)
+
+    return int((keep * inside(px, x_lo, x_hi)
+                * inside(py, y_lo, y_hi)).sum())
+
+
+# The repository's kernels by their __global__ names in csrc/.
+KERNEL_NAME = re.compile(r"(rasterize|soft)\w*_kernel")
+
+
+def kernel_device_ms(by_name):
+    """'name ms, ...' of the repository's kernels in a device_profile."""
+    return ", ".join(
+        f"{match.group(0)} {t:.4f} ms" for name, t in by_name.items()
+        for match in [KERNEL_NAME.search(name)] if match)
+
+
+def device_profile(fn, iters):
+    """torch.profiler over `iters` calls after one: (device kernel ms per
+    call by kernel name, total device ms per call, kernels per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    count = 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.time_range.elapsed_us() / 1e3)
+            count += 1
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    by_name = {k: v / iters for k, v in by_name.items()}
+    return by_name, sum(by_name.values()), count / iters
+
+
+def reset_soft_launch_counts():
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+
+    sc.FWD_LAUNCHES = sc.BWD_LAUNCHES = 0
+    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+
+
+def soft_launch_counts():
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+
+    return {"soft_sil_fwd": sc.SIL_FWD_LAUNCHES,
+            "soft_sil_bwd": sc.SIL_BWD_LAUNCHES,
+            "soft_fwd": sc.FWD_LAUNCHES, "soft_bwd": sc.BWD_LAUNCHES}
+
+
+def fit_phase(dev, card):
+    """Phase 11: the flagship multi-view cow silhouette fit
+    (examples/fit_shape_multiview.py at docs/flagship/README.md's settings)
+    through K5/K6, against the plain route; then its kernels' and its
+    step's times and device profile. Returns the fit's launch counts."""
+    import numpy as np
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.models import (shapes,
+                                                        soft_mesh_renderer)
+    from pytorch_mesh_renderer_tpu_torch.ops import losses, mesh
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+    from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    plain_cfg = config_lib.SoftRasterizerConfig(backend="torch")
+
+    fit_size, n_views = 128, 4
+    verts0, fit_tris, _ = shapes.sphere(0.5, resolution=24)
+    verts0, fit_tris = verts0.to(dev), fit_tris.to(dev)
+    edges = mesh.compute_edges_list(fit_tris)
+    phis = np.linspace(0.0, 2 * np.pi, n_views, endpoint=False)
+    eyes = torch.tensor(np.stack([2.0 * np.sin(phis), 0.3 * np.ones(n_views),
+                                  2.0 * np.cos(phis)], -1), **f32)
+    centers = torch.zeros(n_views, 3, **f32)
+    ups = torch.tensor([[0.0, 1.0, 0.0]] * n_views, **f32)
+    targets = []
+    for i in range(1, n_views + 1):
+        img = test_utils.read_png(os.path.join(
+            REPO, "assets", "example_targets", f"example7b_target{i}.png"))
+        alpha = img[..., 3].astype(np.float32) / 255.0
+        ys = np.arange(fit_size) * alpha.shape[0] // fit_size
+        xs = np.arange(fit_size) * alpha.shape[1] // fit_size
+        targets.append(alpha[ys][:, xs])
+    targets = torch.tensor(np.stack(targets), **f32)
+
+    def alphas(vertices, config=None):
+        return soft_mesh_renderer.render_silhouette(
+            vertices[None].expand(n_views, -1, -1), fit_tris, eyes, centers,
+            ups, fit_size, fit_size, sigma_val=3e-5, config=config)
+
+    def fit_loss(offsets, config=None):
+        vertices = verts0 + offsets
+        return (losses.silhouette_mse_loss(alphas(vertices, config), targets)
+                + 0.3 * losses.edge_loss(vertices, edges)
+                + 0.1 * losses.laplacian_smoothing_loss(vertices, edges))
+
+    def fit_stepper(config=None):
+        """(one Adam step of the fit from offsets 0, returning its loss;
+        the offsets)."""
+        offsets = torch.zeros_like(verts0, requires_grad=True)
+        opt = torch.optim.Adam([offsets], lr=1e-2)
+
+        def step():
+            opt.zero_grad()
+            loss = fit_loss(offsets, config)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step, offsets
+
+    def fit(steps, config=None):
+        """(losses per step, final mean binarized IoU, ms per step)."""
+        step, offsets = fit_stepper(config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        with torch.no_grad():
+            got = alphas(verts0 + offsets) > 0.5
+        want = targets > 0.5
+        iou = float(((got & want).sum((1, 2)) / (got | want).sum(
+            (1, 2)).clamp(min=1)).mean())
+        return [float(x) for x in history], iou, ms
+
+    reset_soft_launch_counts()
+    fit_losses, fit_iou, _ = fit(100)
+    fit_launches = soft_launch_counts()
+    if fit_launches["soft_sil_fwd"] < 100 or fit_launches["soft_sil_bwd"] \
+            < 100:
+        raise AssertionError(f"fit: launches {fit_launches}")
+    if not fit_losses[-1] < fit_losses[0]:
+        raise AssertionError(f"fit: the loss did not fall ({fit_losses[0]}"
+                             f" -> {fit_losses[-1]})")
+    # The first 10 steps through both routes in lockstep: at each step both
+    # take the loss and its gradient at the same offsets, and Adam steps
+    # with the kernels' gradient. Two separate trajectories are compared
+    # too, but not gated: Adam moves each offset by about lr * sign(g), so
+    # the atomics' last-bit noise in a gradient component near zero can
+    # flip a whole step of that offset, and the two runs drift apart by an
+    # amount that changes from run to run.
+    step_errors = []
+    offsets = torch.zeros_like(verts0, requires_grad=True)
+    opt = torch.optim.Adam([offsets], lr=1e-2)
+    for _ in range(10):
+        plain_loss = fit_loss(offsets, plain_cfg)
+        (plain_grad,) = torch.autograd.grad(plain_loss, offsets)
+        opt.zero_grad()
+        loss = fit_loss(offsets)
+        loss.backward()
+        step_errors.append((
+            abs(loss.item() - plain_loss.item()) / abs(plain_loss.item()),
+            grad_error("fit lockstep", "d loss/d offsets", offsets.grad,
+                       plain_grad, TRAIN_RTOL)))
+        opt.step()
+    lockstep_err = max(err for err, _ in step_errors)
+    if not lockstep_err <= 1e-4:
+        raise AssertionError(f"fit: kernel vs plain losses differ by "
+                             f"{lockstep_err} relative")
+    grad_err = max(err / scale for _, (err, scale) in step_errors)
+    plain_losses, _, _ = fit(10, plain_cfg)
+    drift = max(abs(a - b) / abs(b) for a, b in zip(fit_losses,
+                                                    plain_losses))
+    log("fit", f"cow fit {fit_size}^2 x {n_views} views, sphere "
+        f"{fit_tris.shape[0]} triangles, Adam 1e-2, sigma 3e-5: loss "
+        f"{fit_losses[0]:.5f} -> {fit_losses[-1]:.5f} at step 99, mean IoU "
+        f"{fit_iou:.4f} after 100 steps (the TPU log at epoch 99: loss "
+        f"{FLAGSHIP_EPOCH_99['loss']}, IoU {FLAGSHIP_EPOCH_99['iou']}; "
+        f"differences {fit_losses[-1] - FLAGSHIP_EPOCH_99['loss']:+.5f}, "
+        f"{fit_iou - FLAGSHIP_EPOCH_99['iou']:+.4f}, not gated); launches "
+        f"{fit_launches}; 10 steps in lockstep with the plain route: loss "
+        f"max rel {lockstep_err:.3g} (gate 1e-4), gradient max "
+        f"{grad_err:.3g} of max |grad| (gate {TRAIN_RTOL}); 10 separate "
+        f"plain steps drift from the kernels' by {drift:.3g} relative "
+        "(not gated)")
+
+    # The silhouette kernels at the fit's shape (128^2 x 4 views).
+    fit_clip = test_utils.clip_from_eye(
+        verts0[None].expand(n_views, -1, -1), eyes, fit_size, fit_size)
+    zeros = torch.zeros(n_views, verts0.shape[0], 3, **f32)
+    fit_table = sc.pack_triangle_data(fit_clip, fit_tris, zeros, zeros, zeros,
+                                      0.01)
+    fit_params = sc.make_params(3e-5, 1.0, 0.01, 0, dev)
+    fit_alpha = sc.launch_sil_fwd(fit_table, fit_params, fit_size, fit_size,
+                                  fit_size)
+    fit_d_alpha = torch.randn(
+        tuple(fit_alpha.shape),
+        generator=torch.Generator(device=dev).manual_seed(9), **f32)
+    fit_pairs = pixel_pairs(fit_table[..., 22], fit_table[..., 23],
+                            fit_table[..., 24], fit_table[..., 25],
+                            fit_table[..., 21] > 0, fit_size, fit_size)
+    fit_sil_ms = (
+        cuda_time_ms(lambda: sc.launch_sil_fwd(
+            fit_table, fit_params, fit_size, fit_size, fit_size), iters=20),
+        cuda_time_ms(lambda: sc.launch_sil_bwd(
+            fit_table, fit_params, fit_alpha, fit_d_alpha, fit_size),
+            iters=20))
+    log("soft-times", f"{card} | fit shape {fit_size}^2 x {n_views} views, "
+        f"{fit_tris.shape[0]} triangles ({fit_pairs} pairs): soft_sil_fwd "
+        f"launch {fit_sil_ms[0]:.4f} ms, soft_sil_bwd launch "
+        f"{fit_sil_ms[1]:.4f} ms")
+
+    _, _, fit_step_ms = fit(50)
+    log("soft-times", f"{card} | fit step ({fit_size}^2 x {n_views} views, "
+        f"render_silhouette + losses + backward + Adam): {fit_step_ms:.4f} "
+        "ms per step (host clock over 50 steps)")
+    by_name, device_ms, n_kernels = device_profile(fit_stepper()[0],
+                                                   iters=10)
+    log("soft-times", f"{card} | profile fit step: device kernel time "
+        f"{device_ms:.4f} ms per step in {n_kernels:.0f} kernels; idle "
+        f"share {1.0 - device_ms / fit_step_ms:.3f} of the unprofiled "
+        f"{fit_step_ms:.4f} ms; {kernel_device_ms(by_name)}")
+    return fit_launches
+
+
+def soft_phases(dev, card, teapot):
+    """Phases 8-12: the soft renderer's kernels K5-K8 on the card.
+
+    `teapot` is the headline scene dict of main() (CW triangles, RGB
+    intensities); the soft path takes its triangles reversed (CCW) and one
+    intensity per light, as bench.py:bench_soft does. Returns
+    (errors, relative errors, launches, ms, bounds), each keyed by kernel
+    name.
+    """
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.models import soft_mesh_renderer
+    from pytorch_mesh_renderer_tpu_torch.ops import mesh
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+    from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+
+    names = ("soft_sil_fwd", "soft_sil_bwd", "soft_fwd", "soft_bwd")
+    errors = {name: 0.0 for name in names}
+    plain_cfg = config_lib.SoftRasterizerConfig(backend="torch")
+
+    # 8. soft-kernel: K5-K8 vs their plain versions, on test_utils' scenes
+    # and under its gates (shared with tests/test_torch_cuda.py).
+    worst = {}  # (kernel, tensor) -> max abs error / max |plain value|
+
+    def compare_soft(name, scene, row_offset=0, full_height=None,
+                     d_rgba=None):
+        """The four soft kernels vs their plain versions on one scene.
+        Returns K7's outputs, K5's alpha and K8's and K6's dtables."""
+        k7, alpha, found = test_utils.compare_soft_forward(
+            scene, row_offset, full_height)
+        if d_rgba is None:
+            d_rgba = test_utils.soft_cotangents(
+                scene.table.shape[0], scene.height, scene.width, dev)
+        dtable, sil_dtable, bwd_found = test_utils.compare_soft_backward(
+            scene, k7, alpha, d_rgba, row_offset, full_height)
+        found.update(bwd_found)
+        report = []
+        for kernel_name, entries in found.items():
+            for label, err, scale in entries:
+                errors[kernel_name] = max(errors[kernel_name], err)
+                if scale > 0.0:
+                    key = (kernel_name, label)
+                    worst[key] = max(worst.get(key, 0.0), err / scale)
+                    report.append(f"{kernel_name} {label} {err:.3g} of "
+                                  f"{scale:.3g}")
+        log("soft-kernel", f"{name}: alpha of soft_sil_fwd == soft_fwd; "
+            "max abs error of max |plain| (parts whose plain value is 0 "
+            "are 0 in the kernel too): " + ", ".join(report))
+        return k7, alpha, dtable, sil_dtable
+
+    for name in test_utils.SOFT_SCENES:
+        compare_soft(name, test_utils.soft_scene(name, dev))
+
+    # Row strips: forward rows equal the full image's; the strips' table
+    # gradients sum to the full image's.
+    scene = test_utils.soft_scene("random3", dev)
+    full_d = test_utils.soft_cotangents(2, 40, 48, dev, seed=7)
+    full = compare_soft("row strips: full random3", scene, d_rgba=full_d)
+    strips = []
+    for i in range(2):
+        rows = slice(20 * i, 20 * (i + 1))
+        strip = compare_soft(
+            f"row strip {i} random3", scene._replace(
+                height=20, params=sc.make_params(
+                    test_utils.SOFT_SIGMA, test_utils.SOFT_GAMMA,
+                    test_utils.SOFT_BLUR, 20 * i, dev)),
+            20 * i, 40, full_d[:, rows].contiguous())
+        if not (all(torch.equal(s, f[:, rows])
+                    for s, f in zip(strip[0], full[0]))
+                and torch.equal(strip[1], full[1][:, rows])):
+            raise AssertionError(f"row strip {i} differs from the full "
+                                 "image")
+        strips.append(strip)
+    for k, label in ((2, "soft_bwd"), (3, "soft_sil_bwd")):
+        test_utils.grad_errors(f"row strips {label} dtable",
+                               strips[0][k] + strips[1][k], full[k],
+                               test_utils.SOFT_GRAD_RTOL,
+                               test_utils.SOFT_DTABLE_GROUPS)
+    log("soft-kernel", "row strips reassemble the full image exactly; "
+        "their table gradients sum to the full image's within "
+        f"{test_utils.SOFT_GRAD_RTOL} of each input group's max |value|")
+
+    empty = compare_soft("zero-triangle mesh random3", scene._replace(
+        table=scene.table[:, :0].contiguous()))
+    if not torch.equal(empty[0][0], torch.zeros_like(empty[0][0])):
+        raise AssertionError("zero-triangle mesh: not background")
+
+    # The teapot: bench.py:290-311's soft scene at the renderer's defaults.
+    soft_tris = teapot["triangles"].flip(1).contiguous()  # CCW
+    soft_intensities = teapot["intensities"][..., 0].contiguous()
+    teapot_lights = torch.cat([teapot["lights"], soft_intensities[..., None]],
+                              -1).contiguous()
+    teapot_normals = mesh.compute_vertex_normals(teapot["vertices"],
+                                                 soft_tris)
+    teapot_soft = test_utils.SoftScene(
+        sc.pack_triangle_data(test_utils.clip_from_eye(
+            teapot["vertices"], teapot["eye"], TEAPOT_SIZE, TEAPOT_SIZE),
+            soft_tris, teapot["vertices"], teapot_normals,
+            teapot["diffuse"], 0.01),
+        teapot_lights, sc.make_params(1e-5, 1e-4, 0.01, 0, dev),
+        TEAPOT_SIZE, TEAPOT_SIZE)
+    compare_soft(f"teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}", teapot_soft)
+
+    # Above the JAX package's per-pass cap of 49,152 triangles: one launch
+    # per kernel.
+    sphere = test_utils.soft_scene("sphere", dev)
+    reset_soft_launch_counts()
+    compare_soft(f"sphere {sphere.table.shape[1]} triangles 64x64", sphere)
+    if soft_launch_counts() != {name: 1 for name in names}:
+        raise AssertionError(f"sphere: launches {soft_launch_counts()}")
+    log("soft-kernel", f"sphere of {sphere.table.shape[1]} triangles: one "
+        f"launch per kernel {soft_launch_counts()}")
+    log("soft-kernel", "worst max abs error of max |plain| per tensor over "
+        "the scenes: " + ", ".join(f"{k} {label} {rel:.3g}" for (k, label),
+                                   rel in worst.items()))
+    rel_errors = {name: max(rel for (k, _), rel in worst.items() if k == name)
+                  for name in names}
+
+    # 9. soft-main: the soft render through the kernels and plain.
+    scene_args = (teapot["vertices"], soft_tris, teapot["diffuse"],
+                  teapot["eye"], teapot["center"], teapot["up"],
+                  teapot["lights"], soft_intensities)
+    reset_soft_launch_counts()
+    images = soft_mesh_renderer.render(*scene_args, TEAPOT_SIZE,
+                                       TEAPOT_SIZE)
+    torch.cuda.synchronize()
+    main_launches = soft_launch_counts()
+    if main_launches["soft_fwd"] < 1:
+        raise AssertionError("soft render did not launch soft_fwd")
+    if tuple(images.shape) != (TEAPOT_BATCH, TEAPOT_SIZE, TEAPOT_SIZE, 4):
+        raise AssertionError(f"soft render shape {tuple(images.shape)}")
+    if not bool(torch.isfinite(images).all()):
+        raise AssertionError("soft render output is not finite")
+    coverage = [float(c) for c in (images[..., 3] > 0.5).float().mean((1, 2))]
+    if not all(0.05 < c < 0.9 for c in coverage):
+        raise AssertionError(f"implausible soft teapot coverage {coverage}")
+    plain_images = soft_mesh_renderer.render(*scene_args, TEAPOT_SIZE,
+                                             TEAPOT_SIZE, config=plain_cfg)
+    rgb_err = float((images[..., :3] - plain_images[..., :3]).abs().max())
+    rgb_excess = float(((images[..., :3] - plain_images[..., :3]).abs()
+                        - test_utils.SOFT_RGB_RTOL
+                        * plain_images[..., :3].abs()).max())
+    alpha_err = float((images[..., 3] - plain_images[..., 3]).abs().max())
+    if not (rgb_excess <= test_utils.SOFT_RGB_ATOL
+            and alpha_err <= test_utils.SOFT_ALPHA_ATOL):
+        raise AssertionError(f"soft render vs plain: rgb {rgb_err}, alpha "
+                             f"{alpha_err}")
+    log("soft-main", f"soft render teapot {TEAPOT_SIZE}^2 batch "
+        f"{TEAPOT_BATCH}, 2 lights: launches {main_launches}; finite; "
+        f"coverage {', '.join(f'{c:.3f}' for c in coverage)}; vs the plain "
+        f"route rgb max abs {rgb_err:.3g}, alpha {alpha_err:.3g}")
+
+    # 10. soft-train: bench.py:bench_soft's steps, full and silhouette.
+    def soft_step(size, silhouette=False, config=None):
+        vertices = teapot["vertices"].detach().requires_grad_(True)
+        if silhouette:
+            alpha = soft_mesh_renderer.render_silhouette(
+                vertices, soft_tris, teapot["eye"], teapot["center"],
+                teapot["up"], size, size, config=config)
+        else:
+            alpha = soft_mesh_renderer.render(
+                vertices, *scene_args[1:], size, size, config=config)[..., 3]
+        loss = torch.mean(alpha ** 2)
+        loss.backward()
+        return loss, vertices.grad
+
+    step_launches = {}
+    for size, silhouette in ((128, False), (TEAPOT_SIZE, False),
+                             (TEAPOT_SIZE, True)):
+        label = f"{'silhouette' if silhouette else 'soft'} step {size}^2"
+        reset_soft_launch_counts()
+        loss, grad = soft_step(size, silhouette)
+        torch.cuda.synchronize()
+        step_launches[label] = soft_launch_counts()
+        wanted = (("soft_sil_fwd", "soft_sil_bwd") if silhouette
+                  else ("soft_fwd", "soft_bwd"))
+        for name in wanted:
+            if step_launches[label][name] < 1:
+                raise AssertionError(f"{label} did not launch {name}")
+        plain_loss, plain_grad = soft_step(size, silhouette, plain_cfg)
+        err = float((grad - plain_grad).abs().max())
+        scale = float(plain_grad.abs().max())
+        if not (scale > 0.0 and err <= TRAIN_RTOL * scale
+                and bool(torch.isfinite(grad).all())):
+            raise AssertionError(f"{label}: kernel vs plain gradient max abs "
+                                 f"{err} vs {TRAIN_RTOL} x {scale}")
+        log("soft-train", f"{label} batch {TEAPOT_BATCH}, loss "
+            f"mean(alpha^2) = {loss.item():.6f} (plain "
+            f"{plain_loss.item():.6f}); launches {step_launches[label]}; "
+            f"vs the plain step max abs {err:.3g} (gate {TRAIN_RTOL} x "
+            f"{scale:.4g})")
+    sil_label = f"silhouette step {TEAPOT_SIZE}^2"
+    soft_label = f"soft step {TEAPOT_SIZE}^2"
+
+    # 11. fit.
+    fit_phase(dev, card)
+
+    # 12. soft-times at the teapot 256^2 batch 4.
+    table, params = teapot_soft.table, teapot_soft.params
+    rgba, run_max, sum_w = sc.launch_soft_fwd(table, teapot_lights, params,
+                                              TEAPOT_SIZE, TEAPOT_SIZE,
+                                              TEAPOT_SIZE)
+    alpha = rgba[..., 3].contiguous()
+    d_rgba = test_utils.soft_cotangents(TEAPOT_BATCH, TEAPOT_SIZE,
+                                        TEAPOT_SIZE, dev, seed=8)
+    d_alpha = d_rgba[..., 3].contiguous()
+    plain_args = (table, teapot_lights, params[0], params[1], params[2],
+                  TEAPOT_SIZE, TEAPOT_SIZE, 0, TEAPOT_SIZE)
+    sil_args = (table, params[0], params[2], TEAPOT_SIZE, TEAPOT_SIZE, 0,
+                TEAPOT_SIZE)
+    ms = {
+        "soft_fwd": (
+            cuda_time_ms(lambda: sc.launch_soft_fwd(
+                table, teapot_lights, params, TEAPOT_SIZE, TEAPOT_SIZE,
+                TEAPOT_SIZE), iters=20),
+            cuda_time_ms(lambda: sc.soft_forward_torch_packed(
+                *plain_args, False), iters=2, windows=3, warmup=1)),
+        "soft_bwd": (
+            cuda_time_ms(lambda: sc.launch_soft_bwd(
+                table, teapot_lights, params, rgba, run_max, sum_w, d_rgba,
+                TEAPOT_SIZE), iters=20),
+            cuda_time_ms(lambda: sc.soft_backward_torch_packed(
+                *plain_args, d_rgba), iters=1, windows=3, warmup=1)),
+        "soft_sil_fwd": (
+            cuda_time_ms(lambda: sc.launch_sil_fwd(
+                table, params, TEAPOT_SIZE, TEAPOT_SIZE, TEAPOT_SIZE),
+                iters=20),
+            cuda_time_ms(lambda: sc.soft_forward_torch_packed(
+                *plain_args, True), iters=2, windows=3, warmup=1)),
+        "soft_sil_bwd": (
+            cuda_time_ms(lambda: sc.launch_sil_bwd(
+                table, params, alpha, d_alpha, TEAPOT_SIZE), iters=20),
+            cuda_time_ms(lambda: sc.soft_silhouette_backward_torch_packed(
+                *sil_args, d_alpha), iters=1, windows=3, warmup=1)),
+    }
+    pairs = pixel_pairs(table[..., 22], table[..., 23], table[..., 24],
+                        table[..., 25], table[..., 21] > 0, TEAPOT_SIZE,
+                        TEAPOT_SIZE)
+    n_lights = teapot_lights.shape[1]
+    table_bytes = table.numel() * 4
+    lights_bytes = teapot_lights.numel() * 4
+    pixels = TEAPOT_BATCH * TEAPOT_SIZE ** 2
+    # Bytes besides the table columns read (SOFT_COLS_READ): the params
+    # (16), the lights, per-pixel images read and written (K7 writes rgba,
+    # m, sum_w; K8 reads them and d_rgba; K5 writes alpha; K6 reads alpha
+    # and d_alpha) and the gradient tables written.
+    other_bytes = {
+        "soft_fwd": 16 + lights_bytes + pixels * 24,
+        "soft_bwd": 16 + 2 * lights_bytes + pixels * 40 + table_bytes
+        + TEAPOT_BATCH * 8,
+        "soft_sil_fwd": 16 + pixels * 4,
+        "soft_sil_bwd": 16 + pixels * 8 + table_bytes + TEAPOT_BATCH * 4,
+    }
+    bounds = {}
+    for name in names:
+        base, per_light = SOFT_OPS_PER_PAIR[name]
+        bounds[name] = bound_ms(
+            table_bytes * SOFT_COLS_READ[name] // sc.COLS + other_bytes[name],
+            pairs * (base + per_light * n_lights))
+    log("soft-times", f"{card} | teapot {TEAPOT_SIZE}^2 batch "
+        f"{TEAPOT_BATCH}, {table.shape[1]} triangles, {n_lights} lights: "
+        f"{pairs} (pixel, triangle) pairs inside the blur-inflated bboxes "
+        f"({pairs / pixels:.2f} per pixel)")
+    for name in names:
+        log("soft-times", f"{card} | {name}: kernel launch "
+            f"{ms[name][0]:.4f} ms, plain version {ms[name][1]:.4f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+
+    render_ms = cuda_time_ms(lambda: soft_mesh_renderer.render(
+        *scene_args, TEAPOT_SIZE, TEAPOT_SIZE), iters=20)
+    log("soft-times", f"{card} | soft render forward, teapot "
+        f"{TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}: {render_ms:.4f} ms, "
+        f"{TEAPOT_BATCH * 1000.0 / render_ms:.2f} renders/s")
+    step_ms = {}
+    for size, silhouette in ((128, False), (TEAPOT_SIZE, False),
+                             (TEAPOT_SIZE, True)):
+        label = f"{'silhouette' if silhouette else 'soft'} step {size}^2"
+        step_ms[label] = cuda_time_ms(
+            lambda: soft_step(size, silhouette), iters=20)
+        log("soft-times", f"{card} | {label} batch {TEAPOT_BATCH} (render "
+            f"+ mean(alpha^2) + backward to the vertices): "
+            f"{step_ms[label]:.4f} ms, "
+            f"{TEAPOT_BATCH * 1000.0 / step_ms[label]:.2f} renders/s")
+
+    # Device time by kernel (torch.profiler) and the device's idle share.
+    for label, fn, wall_ms in (
+            (soft_label, lambda: soft_step(TEAPOT_SIZE), step_ms[soft_label]),
+            (sil_label, lambda: soft_step(TEAPOT_SIZE, True),
+             step_ms[sil_label])):
+        by_name, device_ms, n_kernels = device_profile(fn, iters=10)
+        log("soft-times", f"{card} | profile {label}: device kernel time "
+            f"{device_ms:.4f} ms per step in {n_kernels:.0f} kernels; idle "
+            f"share {1.0 - device_ms / wall_ms:.3f} of the unprofiled "
+            f"{wall_ms:.4f} ms; {kernel_device_ms(by_name)}")
+
+    launches = {"soft_fwd": main_launches["soft_fwd"],
+                "soft_bwd": step_launches[soft_label]["soft_bwd"],
+                "soft_sil_fwd": step_launches[sil_label]["soft_sil_fwd"],
+                "soft_sil_bwd": step_launches[sil_label]["soft_sil_bwd"]}
+    return errors, rel_errors, launches, ms, bounds
 
 
 def main():
@@ -160,6 +793,12 @@ def main():
 
     # 3. Kernel vs plain version on the card.
     max_err = 0.0
+    # Each kernel's worst max abs error over max |plain value|, per tensor.
+    rel_errors = {name: 0.0 for name in KERNELS}
+
+    def relative(name, err, scale):
+        if scale > 0.0:
+            rel_errors[name] = max(rel_errors[name], err / scale)
 
     def compare(name, clip, attrs, tris, width, height, **kwargs):
         nonlocal max_err
@@ -178,6 +817,9 @@ def main():
                 raise AssertionError(
                     f"{name}: {label} max abs {err} > {KERNEL_ATOL}")
         max_err = max(max_err, *errs)
+        for err, p in zip(errs, plain[1:]):
+            if p.numel():
+                relative("rasterize_fused_fwd", err, float(p.abs().max()))
         covered = float((kernel[1].sum(-1) > 0).float().mean())
         log("kernel", f"{name}: ids equal; max abs bc {errs[0]:.3g}, attrs "
             f"{errs[1]:.3g}, z {errs[2]:.3g}; covered {covered:.3f}")
@@ -297,21 +939,6 @@ def main():
     def cotangents(shape):
         return torch.randn(shape, generator=cotangent_rng, **f32)
 
-    def grad_error(name, label, kernel, plain):
-        """Max abs error of a backward kernel; fails above GRAD_RTOL."""
-        torch.cuda.synchronize()
-        if kernel.shape != plain.shape:
-            raise AssertionError(f"{name}: {label} shape {kernel.shape} vs "
-                                 f"{plain.shape}")
-        if not bool(torch.isfinite(kernel).all()):
-            raise AssertionError(f"{name}: {label} is not finite")
-        err = float((kernel - plain).abs().max()) if plain.numel() else 0.0
-        scale = float(plain.abs().max()) if plain.numel() else 0.0
-        if not err <= GRAD_RTOL * scale:
-            raise AssertionError(f"{name}: {label} max abs {err} > "
-                                 f"{GRAD_RTOL} x {scale}")
-        return err, scale
-
     def compare_backward(name, clip, attrs, tris, width, height,
                          row_offset=0, full_height=None, full_cotangents=None):
         """K2 and K4 vs their plain versions on one scene, K3 vs its plain
@@ -350,8 +977,10 @@ def main():
                 ("dclip", "dattr"), kernel_vert, plain_vert))
             worst = 0.0
             for label, k, p in pairs:
-                err, scale = grad_error(f"{name} {kernel_name}", label, k, p)
+                err, scale = grad_error(f"{name} {kernel_name}", label, k, p,
+                                        GRAD_RTOL)
                 worst = max(worst, err)
+                relative(kernel_name, err, scale)
                 report.append(f"{kernel_name} {label} {err:.3g} "
                               f"(scale {scale:.3g})")
             errors[kernel_name] = max(errors[kernel_name], worst)
@@ -367,6 +996,10 @@ def main():
             raise AssertionError(f"{name}: rasterize_bary_fwd ids differ")
         k3_err = max(float((k - p).abs().max()) if k.numel() else 0.0
                      for k, p in zip(k3[1:], p3[1:]))
+        for k, p in zip(k3[1:], p3[1:]):
+            if k.numel():
+                relative("rasterize_bary_fwd", float((k - p).abs().max()),
+                         float(p.abs().max()))
         if not k3_err <= KERNEL_ATOL:
             raise AssertionError(f"{name}: rasterize_bary_fwd bc/z max abs "
                                  f"{k3_err} > {KERNEL_ATOL}")
@@ -394,7 +1027,8 @@ def main():
             ("rasterize_fused_bwd", "rasterize_bary_bwd"), full, *strips):
         for label, whole, *parts in zip(("dclip", "dattr"), full_grads,
                                         *strip_grads):
-            grad_error(f"row strips {kernel_name}", label, sum(parts), whole)
+            grad_error(f"row strips {kernel_name}", label, sum(parts), whole,
+                       GRAD_RTOL)
     log("kernel", "row strips: the two strips' gradients sum to the full "
         f"image's within {GRAD_RTOL} of its max |value|")
     empty = compare_backward("zero-triangle mesh 48x40", *scene[:2],
@@ -617,7 +1251,7 @@ def main():
     bary = (ids, bc, g_bc, table, inv_abs_det)
     no_attrs = torch.zeros(TEAPOT_BATCH, table.shape[1], 3, 0, **f32)
     ms = {
-        "rasterize_fused_fwd": (kernel_ms, plain_ms),
+        "rasterize_fused_fwd": (launch_ms, plain_ms),
         "rasterize_fused_bwd": (
             cuda_time_ms(lambda: rc.launch_fused_bwd(*fused), iters=20),
             cuda_time_ms(lambda: rc.triangle_gradients_torch(*fused),
@@ -659,18 +1293,84 @@ def main():
         f"{train_ms:.4f} ms, {TEAPOT_BATCH * 1000.0 / train_ms:.2f} "
         "renders/s")
 
+    def bary_step():
+        c = teapot_clip.detach().clone().requires_grad_(True)
+        out = [rasterize_ops.rasterize_barycentric(
+            c[b], teapot["triangles"], TEAPOT_SIZE, TEAPOT_SIZE)
+            for b in range(TEAPOT_BATCH)]
+        sum((bc * weights).sum() for _, bc, _ in out).backward()
+
+    for label, fn, wall_ms in (
+            ("training step", train_step, train_ms),
+            (f"rasterize_barycentric x {TEAPOT_BATCH} images + backward",
+             bary_step, None)):
+        by_name, device_ms, n_kernels = device_profile(fn, iters=10)
+        idle = ("" if wall_ms is None else f"; idle share "
+                f"{1.0 - device_ms / wall_ms:.3f} of the unprofiled "
+                f"{wall_ms:.4f} ms")
+        log("times", f"{card} | profile {label}: device kernel time "
+            f"{device_ms:.4f} ms per call in {n_kernels:.0f} kernels{idle};"
+            f" {kernel_device_ms(by_name)}")
+
+    # Each hard kernel's bound at the headline scene (bytes read once and
+    # written once; the pairs of pixel centres inside each triangle's
+    # screen bbox times HARD_OPS_PER_PAIR, plus the per-pixel epilogue).
+    batch, n_tri = table.shape[:2]
+    n_attr = teapot_attrs.shape[-1]
+    pixels = TEAPOT_BATCH * TEAPOT_SIZE ** 2
+    corners = teapot_clip[:, teapot["triangles"].long()]
+    ndc = corners[..., :2] / corners[..., 3:4]
+    pairs = pixel_pairs(ndc[..., 0].amin(-1), ndc[..., 0].amax(-1),
+                        ndc[..., 1].amin(-1), ndc[..., 1].amax(-1),
+                        torch.ones(batch, n_tri, **f32), TEAPOT_SIZE,
+                        TEAPOT_SIZE)
+    table_bytes = table.numel() * 4
+    det_bytes = inv_abs_det.numel() * 4
+    corner_bytes = corner.numel() * 4
+    bounds = {
+        "rasterize_fused_fwd": bound_ms(
+            table_bytes + corner_bytes + pixels * (4 + 12 + 4 * n_attr),
+            pairs * HARD_OPS_PER_PAIR + pixels * 6 * n_attr),
+        "rasterize_fused_bwd": bound_ms(
+            pixels * (4 + 12 + 12 + 4 * n_attr) + table_bytes + det_bytes
+            + corner_bytes + batch * n_tri * (9 + 3 * n_attr) * 4,
+            pixels * (9 + 3 * n_attr) * 4),
+        "rasterize_bary_fwd": bound_ms(table_bytes + pixels * (4 + 12 + 4),
+                                       pairs * HARD_OPS_PER_PAIR),
+        "rasterize_bary_bwd": bound_ms(
+            pixels * (4 + 12 + 12) + table_bytes + det_bytes
+            + batch * n_tri * 9 * 4, pixels * 9 * 4),
+    }
+    log("times", f"{card} | teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}: "
+        f"{pairs} (pixel, triangle) pairs inside the triangles' bboxes; "
+        "bounds " + ", ".join(f"{name} {ms_:.4f} ms ({by})"
+                              for name, (ms_, by) in bounds.items()))
+
     # Each kernel's launches on the path that runs it: K1 on the forward
     # render, K2 on the training step, K3 and K4 on rasterize_barycentric.
     launches = {"rasterize_fused_fwd": main_launches["rasterize_fused_fwd"],
                 "rasterize_fused_bwd": train_launches["rasterize_fused_bwd"],
                 "rasterize_bary_fwd": bary_launches["rasterize_bary_fwd"],
                 "rasterize_bary_bwd": bary_launches["rasterize_bary_bwd"]}
+
+    # 8-12. The soft renderer: K7 on the soft render, K8 on the soft step,
+    # K5 and K6 on the silhouette step.
+    soft_errors, soft_rel, soft_launches, soft_ms, soft_bounds = soft_phases(
+        dev, card, teapot)
+    errors.update(soft_errors)
+    rel_errors.update(soft_rel)
+    launches.update(soft_launches)
+    ms.update(soft_ms)
+    bounds.update(soft_bounds)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
-        "max_abs_err": errors[name], "ms": ms[name][0],
-        "plain_ms": ms[name][1]}
+        "max_abs_err": errors[name], "max_rel_err": rel_errors[name],
+        "ms": ms[name][0],
+        "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,22 +3,25 @@
 A second package beside the JAX reference `pytorch_mesh_renderer_tpu`. It
 imports torch and numpy and never jax. Module paths mirror the JAX
 package's, so each port module sits where its counterpart does. Plain
-tensor code is PyTorch; the rasterizer's hot loop is a CUDA C++ kernel
-(`csrc/rasterize_fused_fwd.cu`) built for Hopper on first use.
+tensor code is PyTorch; the rasterizers' hot loops are CUDA C++ kernels
+(`csrc/*.cu`) built for Hopper on first use.
 
-The slice ported so far is the hard Phong renderer's forward path:
+The slices ported so far are the hard Phong renderer and the soft (SoftRas)
+renderer, forward and backward:
 
     import pytorch_mesh_renderer_tpu_torch as pmt
     images = pmt.mesh_renderer.render(vertices, triangles, normals, ...)
+    rgba = pmt.soft_mesh_renderer.render(vertices, triangles, colors, ...)
+    alpha = pmt.soft_mesh_renderer.render_silhouette(vertices, ...)
 
-A CPU tensor renders through the plain PyTorch version of the kernel; a
-CUDA tensor renders through the kernel.
+A CPU tensor renders through the plain PyTorch versions of the kernels; a
+CUDA tensor renders through the kernels.
 """
 
 from . import config
-from .models import mesh_renderer, shapes
-from .ops import camera, mesh
+from .models import mesh_renderer, shapes, soft_mesh_renderer
+from .ops import camera, losses, mesh
 from .utils import debug, obj_io
 
-__all__ = ["config", "mesh_renderer", "shapes", "camera", "mesh", "obj_io",
-           "debug"]
+__all__ = ["config", "mesh_renderer", "soft_mesh_renderer", "shapes",
+           "camera", "losses", "mesh", "obj_io", "debug"]

@@ -1,10 +1,10 @@
 """Renderer configuration.
 
-Port of `pytorch_mesh_renderer_tpu/config.py` (HardRasterizerConfig and the
-debug-checks flag). The TPU knobs of the JAX config (`dot_precision`,
-`spatial_sort`, `binning`, `interpret`) have no counterpart here: the CUDA
-kernel computes in fp32 throughout and streams every triangle, so there is
-nothing for them to select.
+Port of `pytorch_mesh_renderer_tpu/config.py` (HardRasterizerConfig,
+SoftRasterizerConfig and the debug-checks flag). The TPU knobs of the JAX
+configs (`dot_precision`, `spatial_sort`, `binning`, `interpret`) have no
+counterpart here: the CUDA kernels compute in fp32 throughout and stream
+every triangle, so there is nothing for them to select.
 """
 
 from __future__ import annotations
@@ -16,17 +16,8 @@ BACKENDS = ("auto", "cuda", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
-class HardRasterizerConfig:
-    """Configuration for the hard (Genova-style barycentric) rasterizer.
-
-    Attributes:
-      backend: 'auto' (the CUDA kernel for CUDA tensors, the plain PyTorch
-        version for CPU tensors), 'cuda' (the kernel; a CPU tensor raises)
-        or 'torch' (the plain version on any device — the reference that
-        tests and chip_smoke.py hold the kernel against).
-      triangle_chunk: triangles per step of the plain version's dense
-        z-buffer; bounds its peak memory at B*H*W*chunk intermediates.
-    """
+class _RasterizerConfig:
+    """The fields both rasterizer configs share (documented on each)."""
     backend: str = "auto"
     triangle_chunk: int = 64
 
@@ -38,7 +29,35 @@ class HardRasterizerConfig:
             raise ValueError("triangle_chunk must be >= 1")
 
 
+class HardRasterizerConfig(_RasterizerConfig):
+    """Configuration for the hard (Genova-style barycentric) rasterizer.
+
+    Attributes:
+      backend: 'auto' (the CUDA kernel for CUDA tensors, the plain PyTorch
+        version for CPU tensors), 'cuda' (the kernel; a CPU tensor raises)
+        or 'torch' (the plain version on any device — the reference that
+        tests and chip_smoke.py hold the kernel against).
+      triangle_chunk: triangles per step of the plain version's dense
+        z-buffer; bounds its peak memory at B*H*W*chunk intermediates.
+    """
+
+
+class SoftRasterizerConfig(_RasterizerConfig):
+    """Configuration for the soft (SoftRas-style) rasterizer.
+
+    Attributes:
+      backend: as HardRasterizerConfig.backend: 'auto' (the CUDA kernels
+        K5-K8 for CUDA tensors, the plain PyTorch version for CPU tensors),
+        'cuda' (the kernels; a CPU tensor raises) or 'torch' (the plain
+        version on any device).
+      triangle_chunk: triangles per step of the plain version's dense
+        online aggregation (and per recomputed segment of its backward);
+        bounds its peak memory at B*H*W*chunk intermediates.
+    """
+
+
 HARD_CONFIG = HardRasterizerConfig()
+SOFT_CONFIG = SoftRasterizerConfig()
 
 # Debug checks (MESH_RENDERER_DEBUG=1 or set_debug_checks(True)): render
 # checks its output images for NaN/Inf and warns. PyTorch runs eagerly, so

@@ -1,3 +1,3 @@
-"""Model families: the hard renderer and procedural shapes."""
+"""Model families: the hard and soft renderers and procedural shapes."""
 
 from . import shapes  # noqa: F401

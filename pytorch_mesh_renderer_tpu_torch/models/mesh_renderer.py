@@ -39,6 +39,32 @@ def _as_f32(value, device, name):
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
+def _vertices_and_triangles(vertices, triangles):
+    """(vertices as f32 [B, V, 3], triangles as int32 [T, 3] on the
+    vertices' device). Numpy triangles are materialised there; a tensor on
+    another device raises."""
+    if not torch.is_tensor(vertices):
+        raise TypeError("vertices must be a torch.Tensor")
+    device = vertices.device
+    vertices = vertices.to(torch.float32)
+    if vertices.dim() != 3 or vertices.shape[-1] != 3:
+        raise ValueError(
+            "Vertices must have shape [batch_size, vertex_count, 3].")
+    if not torch.is_tensor(triangles):
+        # A reversed view such as tris[:, ::-1] has negative strides, which
+        # torch.as_tensor refuses; jnp.asarray takes it.
+        triangles = torch.as_tensor(np.ascontiguousarray(triangles),
+                                    device=device)
+    elif triangles.device != device:
+        raise ValueError(
+            f"triangles lie on {triangles.device}, but vertices lie on "
+            f"{device}; move them explicitly.")
+    triangles = triangles.to(torch.int32)
+    if triangles.dim() != 2 or triangles.shape[-1] != 3:
+        raise ValueError("Triangles must have shape [triangle_count, 3].")
+    return vertices, triangles
+
+
 def _broadcast_camera_vec(value, batch_size, device, name):
     value = _as_f32(value, device, name)
     if tuple(value.shape) == (3,):
@@ -82,13 +108,8 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
       pre-tonemapping (may exceed 1), alpha is ~1 on mesh pixels and 0 on
       background.
     """
-    if not torch.is_tensor(vertices):
-        raise TypeError("vertices must be a torch.Tensor")
+    vertices, triangles = _vertices_and_triangles(vertices, triangles)
     device = vertices.device
-    vertices = vertices.to(torch.float32)
-    if vertices.dim() != 3 or vertices.shape[-1] != 3:
-        raise ValueError(
-            "Vertices must have shape [batch_size, vertex_count, 3].")
     batch_size = vertices.shape[0]
     normals = _as_f32(normals, device, "normals")
     if normals.dim() != 3 or normals.shape[-1] != 3:
@@ -150,16 +171,6 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
     else:
         vertex_attributes = torch.cat(
             [normals, vertices, diffuse_colors], dim=2)
-
-    if not torch.is_tensor(triangles):
-        # A reversed view such as tris[:, ::-1] has negative strides, which
-        # torch.as_tensor refuses; jnp.asarray takes it.
-        triangles = torch.as_tensor(np.ascontiguousarray(triangles),
-                                    device=device)
-    elif triangles.device != device:
-        raise ValueError(
-            f"triangles lie on {triangles.device}, but vertices lie on "
-            f"{device}; move them explicitly.")
 
     clip_space_transforms = camera.clip_space_transforms(
         camera_position, camera_lookat, camera_up, fov_y, near_clip,

@@ -1,3 +1,5 @@
-"""Compute ops: camera math, mesh ops, the rasterizer and its kernel, shading."""
+"""Compute ops: camera math, mesh ops, losses, the hard and soft rasterizers
+and their kernels, shading."""
 
-from . import barycentric, camera, math_utils, mesh, shading  # noqa: F401
+from . import (barycentric, camera, losses, math_utils, mesh,  # noqa: F401
+               shading)

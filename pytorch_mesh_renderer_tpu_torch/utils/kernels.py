@@ -134,8 +134,14 @@ def load_library() -> ctypes.CDLL:
     lib.rasterize_bary_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32,
                                                                ptr]
     lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
-                  lib.rasterize_bary_fwd, lib.rasterize_bary_bwd):
+                  lib.rasterize_bary_fwd, lib.rasterize_bary_bwd,
+                  lib.soft_fwd, lib.soft_bwd, lib.soft_sil_fwd,
+                  lib.soft_sil_bwd):
         entry.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p

@@ -5,13 +5,17 @@ Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:21-140`
 0.1%-of-pixels outlier budget at a 0.01 channel threshold; the analytical
 and central-difference Jacobians and their outlier comparator). PNGs are read
 with `read_png`, a reader built on zlib and struct alone, so golden images
-can be checked where imageio is not installed.
+can be checked where imageio is not installed. The soft kernels' scenes and
+their gates against the plain versions (`soft_scene`,
+`compare_soft_forward`, `compare_soft_backward`) serve chip_smoke.py and
+the card tests alike.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -213,3 +217,265 @@ def check_jacobians_are_nearly_equal(theoretical, numerical,
     message = ("%f of gradients are relative outliers, max allowed %f" %
                (outlier_fraction, max_outlier_fraction))
     return matched, message
+
+
+# The soft (SoftRas) kernels K5-K8 against their plain versions: the scenes
+# and the gates that chip_smoke.py and tests/test_torch_cuda.py share.
+
+SOFT_SIGMA, SOFT_GAMMA, SOFT_BLUR = 1e-3, 1e-2, 0.08
+SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
+# Forward gates (tests/test_soft_pallas.py:62, the JAX suite's gate between
+# its two soft backends). The kernels aggregate the softmax per triangle,
+# the plain version per chunk of triangles, so rgb differs in the last
+# bits; the silhouette product runs in the same order in both.
+SOFT_RGB_ATOL, SOFT_RGB_RTOL = 2e-5, 1e-4
+SOFT_ALPHA_ATOL = 1e-6
+# Backward gate, relative to each plain tensor's max |value| and, for the
+# table gradient, to each column group's (the JAX suite's CPU gate between
+# its soft backward backends, tests/test_soft_pallas.py:81-89). The
+# kernels sum per-pixel terms with warp shuffles and atomic adds, in an
+# order that changes from run to run.
+SOFT_GRAD_RTOL = 1e-4
+# d/dgamma's gate, the JAX suite's own (tests/test_soft_pallas.py:183-184).
+# It sums per-pixel terms W (shade - rgb) z / gamma^2 that cancel: at the
+# teapot's gamma of 1e-4 the sum's rounding reached 1.8e-3 of its value on
+# an H100.
+SOFT_DGAMMA_RTOL = 1e-2
+# Column groups of the [B, T, 59] table gradient by the input of the
+# packing that each column comes from, each held against its own max
+# |value| as the JAX suite holds the clip, world, normal and colour
+# gradients apart: the clip group's edge corners (~1/sigma) would hide an
+# error in the others. The clip group is not split further: its barycentric
+# and z columns sum per-pixel terms scaled by 1/gamma that cancel, so their
+# rounding is set by the edge corners' scale (the teapot at gamma 1e-4: a
+# bary error of 1.9e-4 of the bary columns' own max, 1.4e-7 of the clip
+# group's). The last group takes no gradient on either route.
+SOFT_Z_COLUMNS = [15, 16, 17]
+SOFT_DTABLE_GROUPS = (
+    ("clip", list(range(0, 18)) + [53, 54, 55]),
+    ("world", list(range(26, 35))), ("normals", list(range(35, 44))),
+    ("colours", list(range(44, 53))),
+    ("none", list(range(18, 26)) + [56, 57, 58]))
+
+
+class SoftScene(NamedTuple):
+    """A packed soft scene and how to compare its kernels.
+
+    depth_matters is False where every triangle lies at one depth: the
+    render then does not depend on gamma or z, and both routes return f32
+    cancellation noise for d/dgamma and the z columns (per-pixel terms
+    W (shade - rgb) z / gamma^2 that cancel), which are not compared.
+    """
+    table: torch.Tensor  # [B, T, 59]
+    lights: torch.Tensor  # [B, L, 4]
+    params: torch.Tensor  # [4]: sigma, gamma, blur^2, row offset
+    width: int
+    height: int
+    depth_matters: bool = True
+    triangle_chunk: int = 64  # the plain version's
+
+
+def clip_from_eye(world, eye, width, height):
+    """Clip-space vertices [B, V, 4] of world [B, V, 3] seen from `eye` (a
+    3-list or a [B, 3] tensor) toward the origin, y up, fov_y 40, near
+    0.01, far 10."""
+    from ..ops import camera
+
+    batch = world.shape[0]
+    f32 = dict(dtype=torch.float32, device=world.device)
+    eye = eye if torch.is_tensor(eye) else torch.tensor([eye] * batch, **f32)
+    cam = camera.clip_space_transforms(
+        eye, torch.zeros(batch, 3, **f32),
+        torch.tensor([[0.0, 1.0, 0.0]] * batch, **f32),
+        torch.full((batch,), 40.0, **f32), torch.full((batch,), 0.01, **f32),
+        torch.full((batch,), 10.0, **f32), width, height)
+    return camera.transform_homogeneous(cam, world)
+
+
+def soft_scene(name, device):
+    """A SoftScene by name: 'two_triangle' (tests/test_soft_pallas.py:20-41,
+    16x16), 'cube' (64x48), 'random1' / 'random3' (the JAX suite's
+    multi-tile scene with 1 or 3 lights, 48x40) or 'sphere' (2 * 157^2 =
+    49,298 triangles, above the JAX package's per-pass cap of 49,152, at
+    64x64). Inputs come from seeded numpy generators."""
+    from ..models import shapes
+    from ..ops import soft_rasterize_cuda as sc
+
+    f32 = dict(dtype=torch.float32, device=device)
+    sigma, gamma, blur = SOFT_SIGMA, SOFT_GAMMA, SOFT_BLUR
+    depth_matters, chunk = True, 64
+    if name == "two_triangle":
+        rng = np.random.RandomState(0)
+        world = np.float32([[-0.6, -0.5, 0.1], [0.7, -0.4, -0.2],
+                            [0.0, 0.8, 0.0], [0.9, 0.6, 0.4]])
+        tris = np.int32([[0, 1, 2], [1, 3, 2]])
+        normals = np.tile(np.float32([[0.0, 0.3, 1.0]]), [4, 1])
+        normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+        colors = rng.uniform(0.2, 1.0, [4, 3])
+        lights = np.float32([[0.5, 1.0, 3.0, 1.3], [-1.0, 0.5, 2.0, 0.7]])
+        w = np.float32([1.0, 1.3, 0.9, 1.1])
+        clip = np.concatenate([world * w[:, None], 0.25 * w[:, None],
+                               w[:, None]], axis=1)
+        clip, world, normals, colors, lights = (
+            torch.tensor(a[None], **f32) for a in (clip, world, normals,
+                                                   colors, lights))
+        width = height = 16
+        depth_matters = False  # every triangle at NDC z 0.25
+    elif name == "sphere":
+        v, tris, _ = shapes.sphere(1.0, resolution=157)
+        world = v[None].to(device)
+        normals, colors = world, torch.ones_like(world)
+        width = height = 64
+        clip = clip_from_eye(world, [0.0, 0.5, 3.0], width, height)
+        lights = torch.tensor([[[0.0, 2.0, 4.0, 1.0]]], **f32)
+        sigma, gamma, blur, chunk = 1e-4, 1e-3, 0.01, 512
+    else:
+        n_lights = 1 if name == "cube" else int(name[6:])
+        if name == "cube":
+            batch = 1
+            world = torch.tensor([[-1, -1, 1], [-1, -1, -1], [-1, 1, -1],
+                                  [-1, 1, 1], [1, -1, 1], [1, -1, -1],
+                                  [1, 1, -1], [1, 1, 1]], **f32)[None]
+            tris = torch.tensor([[2, 1, 0], [0, 3, 2], [6, 2, 3], [3, 7, 6],
+                                 [5, 6, 7], [7, 4, 5], [1, 5, 4], [4, 0, 1],
+                                 [2, 6, 5], [5, 1, 2], [0, 4, 7], [7, 3, 0]])
+            normals = world / torch.linalg.norm(world, dim=-1, keepdim=True)
+            colors = world * 0.5 + 0.5
+            eye, (width, height) = [2.0, 3.0, 6.0], (64, 48)
+        elif name in ("random1", "random3"):
+            rng = np.random.RandomState(n_lights)
+            batch, width, height = 2, 48, 40
+            world = torch.tensor(rng.randn(batch, 24, 3) * 0.5, **f32)
+            tris = rng.randint(0, 24, (30, 3))
+            normals = torch.tensor(rng.randn(batch, 24, 3), **f32)
+            normals = normals / torch.linalg.norm(normals, dim=-1,
+                                                  keepdim=True)
+            colors = torch.tensor(rng.uniform(0.2, 1.0, (batch, 24, 3)),
+                                  **f32)
+            eye = [0.0, 0.0, 3.0]
+        else:
+            raise ValueError(f"unknown soft scene {name!r}")
+        rng = np.random.RandomState(10 + n_lights)
+        lights = torch.tensor(np.concatenate([
+            rng.randn(batch, n_lights, 3) * 2.0,
+            rng.uniform(0.5, 1.5, (batch, n_lights, 1))], -1), **f32)
+        clip = clip_from_eye(world, eye, width, height)
+    tris = torch.as_tensor(tris, dtype=torch.int32, device=device)
+    table = sc.pack_triangle_data(clip, tris, world, normals, colors, blur)
+    params = sc.make_params(sigma, gamma, blur, 0, device)
+    return SoftScene(table, lights.contiguous(), params, width, height,
+                     depth_matters, chunk)
+
+
+def soft_cotangents(batch, height, width, device, seed=6):
+    """A seeded [B, H, W, 4] cotangent with nonzero rgb and alpha parts."""
+    rng = np.random.RandomState(seed)
+    return torch.tensor(rng.randn(batch, height, width, 4),
+                        dtype=torch.float32, device=device)
+
+
+def grad_errors(label, kernel, plain, rtol, groups=None):
+    """[(label, max abs error, max |plain|)] of a backward kernel's tensor
+    against its plain version's, one entry per column group (`groups`,
+    e.g. SOFT_DTABLE_GROUPS) or one for the whole tensor. Raises
+    AssertionError if the tensor is not finite or an error exceeds rtol x
+    the plain part's max |value|."""
+    if kernel.shape != plain.shape:
+        raise AssertionError(f"{label}: shape {tuple(kernel.shape)} vs "
+                             f"{tuple(plain.shape)}")
+    if not bool(torch.isfinite(kernel).all()):
+        raise AssertionError(f"{label} is not finite")
+    parts = ([(f"{label} {name}", kernel[..., cols], plain[..., cols])
+              for name, cols in groups] if groups else
+             [(label, kernel, plain)])
+    out = []
+    for part, k, p in parts:
+        err = float((k - p).abs().max()) if p.numel() else 0.0
+        scale = float(p.abs().max()) if p.numel() else 0.0
+        if not err <= rtol * scale:
+            raise AssertionError(f"{part}: max abs {err} > {rtol} x {scale}")
+        out.append((part, err, scale))
+    return out
+
+
+def compare_soft_forward(scene, row_offset=0, full_height=None):
+    """K7 and K5 against the plain forward on one scene (CUDA tensors).
+
+    Rows [row_offset, row_offset + scene.height) of a full_height-row image.
+    Raises AssertionError past a gate or if K5's alpha differs from K7's in
+    any bit. Returns ((rgba, run_max, sum_w) of K7, alpha of K5, errors):
+    errors maps a kernel name to [(label, max abs error, max |plain|)].
+    """
+    from ..ops import soft_rasterize_cuda as sc
+
+    table, lights, params, width, height = scene[:5]
+    full_height = full_height or height
+    k7 = sc.launch_soft_fwd(table, lights, params, width, height,
+                            full_height)
+    alpha = sc.launch_sil_fwd(table, params, width, height, full_height)
+    rgb, plain_alpha, _, _ = sc.soft_forward_torch_packed(
+        table, lights, params[0], params[1], params[2], height, width,
+        row_offset, full_height, False, scene.triangle_chunk)
+    torch.cuda.synchronize()
+    rgba = k7[0]
+
+    def error(k, p):
+        return ((float((k - p).abs().max()), float(p.abs().max()))
+                if p.numel() else (0.0, 0.0))
+
+    rgb_err, alpha_err = error(rgba[..., :3], rgb), error(rgba[..., 3],
+                                                          plain_alpha)
+    if rgb.numel() and not bool(((rgba[..., :3] - rgb).abs() <= SOFT_RGB_ATOL
+                                 + SOFT_RGB_RTOL * rgb.abs()).all()):
+        raise AssertionError(f"soft_fwd rgb max abs {rgb_err[0]} beyond "
+                             f"{SOFT_RGB_ATOL} + {SOFT_RGB_RTOL} x |rgb|")
+    if not alpha_err[0] <= SOFT_ALPHA_ATOL:
+        raise AssertionError(f"soft_fwd alpha max abs {alpha_err[0]} > "
+                             f"{SOFT_ALPHA_ATOL}")
+    if not torch.equal(alpha, rgba[..., 3]):
+        raise AssertionError("soft_sil_fwd alpha differs from soft_fwd "
+                             "alpha")
+    errors = {"soft_fwd": [("rgb", *rgb_err), ("alpha", *alpha_err)],
+              "soft_sil_fwd": [("alpha", *error(alpha, plain_alpha))]}
+    return k7, alpha, errors
+
+
+def compare_soft_backward(scene, k7, alpha, d_rgba, row_offset=0,
+                          full_height=None):
+    """K8 and K6 against the plain backward on one scene, under the
+    cotangent d_rgba [B, H, W, 4] (K6 takes its alpha part); k7 and alpha
+    are compare_soft_forward's. Every tensor is gated within SOFT_GRAD_RTOL
+    of its max |value| (d/dgamma within SOFT_DGAMMA_RTOL), the table
+    gradients per SOFT_DTABLE_GROUPS group. Returns (dtable of K8, dtable
+    of K6, errors) with errors as compare_soft_forward's."""
+    from ..ops import soft_rasterize_cuda as sc
+
+    table, lights, params, width, height = scene[:5]
+    full_height = full_height or height
+    d_alpha = d_rgba[..., 3].contiguous()
+    dtable, dlights, dparams = sc.launch_soft_bwd(table, lights, params,
+                                                  *k7, d_rgba, full_height)
+    sil_dtable, sil_dsigma = sc.launch_sil_bwd(table, params, alpha,
+                                               d_alpha, full_height)
+    plain = sc.soft_backward_torch_packed(
+        table, lights, params[0], params[1], params[2], height, width,
+        row_offset, full_height, d_rgba, scene.triangle_chunk)
+    plain_sil = sc.soft_silhouette_backward_torch_packed(
+        table, params[0], params[2], height, width, row_offset, full_height,
+        d_alpha, scene.triangle_chunk)
+    torch.cuda.synchronize()
+    groups = SOFT_DTABLE_GROUPS
+    if not scene.depth_matters:
+        groups = [(label, [c for c in cols if c not in SOFT_Z_COLUMNS]
+                   if label == "clip" else cols) for label, cols in groups]
+    rtol = SOFT_GRAD_RTOL
+    bwd = (grad_errors("dtable", dtable, plain[0], rtol, groups)
+           + grad_errors("dlights", dlights, plain[1], rtol)
+           + grad_errors("dsigma", dparams[:, 0].sum(), plain[2], rtol))
+    if scene.depth_matters:
+        bwd += grad_errors("dgamma", dparams[:, 1].sum(), plain[3],
+                           SOFT_DGAMMA_RTOL)
+    sil = (grad_errors("dtable", sil_dtable, plain_sil[0], rtol,
+                       SOFT_DTABLE_GROUPS)
+           + grad_errors("dsigma", sil_dsigma.sum(), plain_sil[1], rtol))
+    return dtable, sil_dtable, {"soft_bwd": bwd, "soft_sil_bwd": sil}

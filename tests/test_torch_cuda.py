@@ -14,6 +14,21 @@ kernels (K2, K4) sum per-pixel terms into per-triangle rows with atomic
 adds in an order that changes from run to run: their gradients agree with
 the plain versions' to 1e-5 of the plain tensor's max |value|, per tensor,
 the JAX suite's CPU gate between its two backward backends.
+
+The soft kernels (K5-K8) against their plain versions: forward rgb within
+2e-5 abs and 1e-4 rel (the JAX suite's Pallas-vs-XLA gate) and alpha within
+1e-6 (the kernels aggregate the softmax triangle by triangle, the plain
+version chunk by chunk; the silhouette product runs in the same order in
+both); K5's alpha equals K7's bit for bit (shared device code); the
+backward kernels (K6, K8) within `test_utils.SOFT_GRAD_RTOL` of each plain
+tensor's max |value|, the table gradient's per group of columns that come
+from one input of the packing: clip, world, normals, colours
+(`test_utils.SOFT_DTABLE_GROUPS`; atomic adds again). d/dgamma and the z columns are compared only where the triangles
+differ in depth: on the two-triangle scene every triangle lies at NDC z
+0.25, so the render does not depend on gamma at all and both routes return
+f32 cancellation noise (per-pixel terms W (shade - rgb) z / gamma^2 of ~4e2
+that cancel). The soft scenes and gates are `utils/test_utils`'s, shared
+with chip_smoke.py.
 """
 
 import numpy as np
@@ -21,11 +36,14 @@ import pytest
 import torch
 
 from pytorch_mesh_renderer_tpu_torch import config as config_lib
-from pytorch_mesh_renderer_tpu_torch.models import mesh_renderer
+from pytorch_mesh_renderer_tpu_torch.models import (mesh_renderer, shapes,
+                                                    soft_mesh_renderer)
 from pytorch_mesh_renderer_tpu_torch.ops import camera
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
+from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+from pytorch_mesh_renderer_tpu_torch.utils import test_utils
 
 pytestmark = pytest.mark.cuda
 
@@ -172,15 +190,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
                             width, height, 0, height, False)
 
 
-def _assert_grads_close(kernel, plain):
-    """Per tensor: within 1e-5 of the plain tensor's max |value|."""
+def _assert_grads_close(kernel, plain, rtol=1e-5):
+    """Per tensor: finite, and within rtol of the plain tensor's max
+    |value|."""
     torch.cuda.synchronize()
     assert len(kernel) == len(plain)
     for k, p in zip(kernel, plain):
         assert k.shape == p.shape and k.dtype == p.dtype
+        assert bool(torch.isfinite(k).all())
         if p.numel():
             scale = float(p.abs().max())
-            assert float((k - p).abs().max()) <= 1e-5 * scale
+            assert float((k - p).abs().max()) <= rtol * scale
 
 
 def _cotangents(ids, n_attr, seed=5):
@@ -288,3 +308,143 @@ def test_backward_launchers_reject_what_the_kernels_do_not_take(dev):
         rb.launch_bary_bwd(ids.long(), *bary[1:])
     with pytest.raises(ValueError, match="contiguous"):
         rb.launch_bary_bwd(ids, bc, g_bc[:, ::2], table, inv_abs_det)
+
+
+SOFT_SCENES = test_utils.SOFT_SCENES
+SOFT_GRAD_RTOL = test_utils.SOFT_GRAD_RTOL
+
+
+def _soft_launches():
+    return (sc.FWD_LAUNCHES, sc.SIL_FWD_LAUNCHES, sc.BWD_LAUNCHES,
+            sc.SIL_BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("scene", SOFT_SCENES)
+def test_soft_forward_kernels_match_plain_versions(dev, scene):
+    soft_scene = test_utils.soft_scene(scene, dev)
+    before = _soft_launches()
+    (rgba, _, _), _, _ = test_utils.compare_soft_forward(soft_scene)
+    assert _soft_launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    assert float(rgba[..., 3].max()) > 0.5
+
+
+@pytest.mark.parametrize("scene", SOFT_SCENES)
+def test_soft_backward_kernels_match_plain_versions(dev, scene):
+    soft_scene = test_utils.soft_scene(scene, dev)
+    k7, alpha, _ = test_utils.compare_soft_forward(soft_scene)
+    d_rgba = test_utils.soft_cotangents(soft_scene.table.shape[0],
+                                        soft_scene.height, soft_scene.width,
+                                        dev)
+    before = _soft_launches()
+    _, sil_dtable, errors = test_utils.compare_soft_backward(
+        soft_scene, k7, alpha, d_rgba)
+    assert _soft_launches() == before[:2] + (before[2] + 1, before[3] + 1)
+    # Every compared part of K8's gradient is exercised (nonzero) but the
+    # columns that take none.
+    assert all(scale > 0.0 for label, _, scale in errors["soft_bwd"]
+               if "none" not in label)
+    # K6 writes only the edge columns.
+    assert torch.equal(sil_dtable[..., :9], torch.zeros_like(
+        sil_dtable[..., :9]))
+    assert torch.equal(sil_dtable[..., 15:], torch.zeros_like(
+        sil_dtable[..., 15:]))
+
+
+def test_soft_row_strips_and_empty_mesh(dev):
+    """Row strips reassemble the full image exactly and their table
+    gradients sum to the full image's; a mesh without triangles renders
+    background and has zero gradients."""
+    full = test_utils.soft_scene("random3", dev)
+    k7, alpha, _ = test_utils.compare_soft_forward(full)
+    d_rgba = test_utils.soft_cotangents(2, full.height, full.width, dev)
+    full_grads = test_utils.compare_soft_backward(full, k7, alpha, d_rgba)
+    strip_grads = []
+    for i in range(2):
+        rows = slice(20 * i, 20 * (i + 1))
+        strip = full._replace(height=20, params=sc.make_params(
+            test_utils.SOFT_SIGMA, test_utils.SOFT_GAMMA,
+            test_utils.SOFT_BLUR, 20 * i, dev))
+        strip_k7, strip_alpha, _ = test_utils.compare_soft_forward(
+            strip, 20 * i, 40)
+        for s, f in zip(strip_k7, k7):
+            assert torch.equal(s, f[:, rows])
+        assert torch.equal(strip_alpha, alpha[:, rows])
+        strip_grads.append(test_utils.compare_soft_backward(
+            strip, strip_k7, strip_alpha, d_rgba[:, rows].contiguous(),
+            20 * i, 40))
+    for k in range(2):
+        test_utils.grad_errors("the strips' dtable", strip_grads[0][k]
+                               + strip_grads[1][k], full_grads[k],
+                               SOFT_GRAD_RTOL, test_utils.SOFT_DTABLE_GROUPS)
+    empty = full._replace(table=full.table[:, :0].contiguous())
+    k7, alpha, _ = test_utils.compare_soft_forward(empty)
+    assert torch.equal(k7[0], torch.zeros_like(k7[0]))
+    dtable, _, errors = test_utils.compare_soft_backward(empty, k7, alpha,
+                                                         d_rgba)
+    assert dtable.shape == empty.table.shape
+    # dlights, dsigma and dgamma: zero on both routes.
+    assert all(err == scale == 0.0 for _, err, scale in errors["soft_bwd"])
+
+
+def _soft_render_args(dev):
+    v, t, _ = shapes.cube(2.0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (v[None].to(dev), t.to(dev), torch.ones(1, 8, 3, **f32),
+            torch.tensor([2.0, 3.0, 6.0], **f32), torch.zeros(3, **f32),
+            torch.tensor([0.0, 1.0, 0.0], **f32),
+            torch.tensor([[[0.0, 2.0, 6.0]]], **f32), torch.ones(1, 1, **f32),
+            32, 32)
+
+
+def test_soft_render_launch_counters_and_no_plain_route(dev, monkeypatch):
+    """render and render_silhouette on a CUDA tensor launch K7/K8 and K5/K6
+    and never reach the plain versions, under 'auto' and 'cuda'."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(sc, "soft_forward_torch_packed", refuse)
+    monkeypatch.setattr(sc, "soft_backward_torch_packed", refuse)
+    monkeypatch.setattr(sc, "soft_silhouette_backward_torch_packed", refuse)
+    args = _soft_render_args(dev)
+    for config in (None, config_lib.SoftRasterizerConfig(backend="cuda")):
+        v = args[0].clone().requires_grad_(True)
+        before = (sc.FWD_LAUNCHES, sc.BWD_LAUNCHES, sc.SIL_FWD_LAUNCHES,
+                  sc.SIL_BWD_LAUNCHES)
+        images = soft_mesh_renderer.render(v, *args[1:], config=config)
+        alpha = soft_mesh_renderer.render_silhouette(
+            v, args[1], *args[3:6], 32, 32, config=config)
+        (images.square().mean() + alpha.square().mean()).backward()
+        torch.cuda.synchronize()
+        after = (sc.FWD_LAUNCHES, sc.BWD_LAUNCHES, sc.SIL_FWD_LAUNCHES,
+                 sc.SIL_BWD_LAUNCHES)
+        assert after == tuple(b + 1 for b in before)
+        assert torch.equal(alpha, images[..., 3].detach())
+        assert bool(torch.isfinite(v.grad).all())
+        assert float(v.grad.abs().max()) > 0.0
+
+
+def test_soft_render_gradients_match_plain_route(dev):
+    args = _soft_render_args(dev)
+    plain_cfg = config_lib.SoftRasterizerConfig(backend="torch")
+    grads = []
+    for config in (None, plain_cfg):
+        v = args[0].clone().requires_grad_(True)
+        sigma = torch.tensor(1e-4, device=dev, requires_grad=True)
+        images = soft_mesh_renderer.render(v, *args[1:], sigma_val=sigma,
+                                           gamma_val=1e-2, config=config)
+        images.square().mean().backward()
+        grads.append((v.grad, sigma.grad))
+    _assert_grads_close(grads[0], grads[1], SOFT_GRAD_RTOL)
+
+
+def test_soft_large_mesh_renders_in_one_launch(dev):
+    """A sphere of 2 * 157^2 = 49,298 triangles, above the JAX package's
+    per-pass cap of 49,152, renders in one launch per kernel at 64x64."""
+    sphere = test_utils.soft_scene("sphere", dev)
+    assert sphere.table.shape[1] == 49298
+    before = _soft_launches()
+    k7, alpha, _ = test_utils.compare_soft_forward(sphere)
+    test_utils.compare_soft_backward(
+        sphere, k7, alpha, test_utils.soft_cotangents(1, 64, 64, dev))
+    assert _soft_launches() == tuple(b + 1 for b in before)
+    assert 0.2 < float((alpha > 0.5).float().mean()) < 0.9

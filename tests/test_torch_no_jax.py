@@ -3,7 +3,8 @@
 The machine with the card has no JAX, so the port must import neither jax
 nor the JAX package (whose __init__ imports jax). A fresh interpreter with
 `sys.modules["jax"] = None` makes any such import fail; in it, the port
-must import, render a cube on the CPU and take its gradient.
+must import, render a cube on the CPU with the hard and the soft renderer,
+and take their gradients.
 """
 
 import os
@@ -19,7 +20,8 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import torch
 import pytorch_mesh_renderer_tpu_torch as pmt
 from pytorch_mesh_renderer_tpu_torch.ops import (  # noqa: F401
-    rasterize_barycentric_cuda, rasterize_cuda)
+    losses, rasterize_barycentric_cuda, rasterize_cuda, soft_rasterize,
+    soft_rasterize_cuda)
 from pytorch_mesh_renderer_tpu_torch.utils import (  # noqa: F401
     convert, kernels, test_utils)
 
@@ -36,6 +38,23 @@ assert img.shape == (1, 24, 32, 4) and bool(torch.isfinite(img).all())
 assert 0.05 < float(img[..., 3].mean()) < 0.95
 (img[..., :3] ** 2).mean().backward()
 assert bool(torch.isfinite(vw.grad).all()) and float(vw.grad.abs().max()) > 0
+
+# The soft renderer (CCW triangles, scalar intensities) and the silhouette
+# gradient through the plain versions of K5-K8.
+vs = (v[None] @ rot.transpose(1, 2)).requires_grad_(True)
+cam = (torch.tensor([0.0, 0.0, 6.0]), torch.zeros(3),
+       torch.tensor([0.0, 1.0, 0.0]))
+rgba = pmt.soft_mesh_renderer.render(
+    vs, t, torch.ones_like(vs), *cam, torch.tensor([[[0.0, 0.0, 6.0]]]),
+    torch.ones(1, 1), 32, 24)
+assert rgba.shape == (1, 24, 32, 4) and bool(torch.isfinite(rgba).all())
+alpha = pmt.soft_mesh_renderer.render_silhouette(vs, t, *cam, 32, 24)
+assert torch.equal(alpha, rgba[..., 3].detach())
+assert 0.05 < float(alpha.mean()) < 0.95
+edges = pmt.mesh.compute_edges_list(t)
+(pmt.losses.silhouette_mse_loss(alpha, torch.ones_like(alpha))
+ + pmt.losses.edge_loss(vs[0], edges)).backward()
+assert bool(torch.isfinite(vs.grad).all()) and float(vs.grad.abs().max()) > 0
 leaked = sorted(m for m in sys.modules
                 if m == "pytorch_mesh_renderer_tpu"
                 or m.startswith("pytorch_mesh_renderer_tpu."))
