@@ -65,9 +65,24 @@ The soft (SoftRas) renderer's phases follow:
                step and the fit step, and device time by kernel from
                torch.profiler.
 
+The design microbenchmarks of scripts/ (S1-S3), ported in
+pytorch_mesh_renderer_tpu_torch/microbench/, follow:
+
+ 13. microbench — each module's run as `python -m` runs it (mxu_edge and
+               mxu_full at 512 visits of 8 triangles, patch_scatter at
+               the headline and the stress config), counting launches and
+               printing each JSON line; both patch merges must give K3's
+               ids with bc and z within 1e-6 and drop no triangle. Then
+               each kernel vs its plain version at those shapes: fma,
+               prod and patch_eval bit for bit, the tensor-core variants
+               within their modules' tolerances (TC_RTOL, check_tc); and
+               each kernel's device time (torch.profiler), its plain
+               version's and, for mxu_edge, torch.matmul + sum's.
+
 Then it prints the kernel summary as one JSON line (with each kernel's
-bound: the larger of its bytes over 3.35 TB/s and its fp32 operations over
-67 TFLOP/s, counted from this run's inputs) and, last, the device line
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+card's peak for their type, fp32 at 67 TFLOP/s and tensor-core TF32 at 495
+or bf16 at 989, counted from this run's inputs) and, last, the device line
 `{"ok": true, "device": {...}}`. Any failed phase raises and the exit
 code is non-zero; without a CUDA device it exits non-zero before printing
 any result.
@@ -95,11 +110,26 @@ KERNELS = {
     "soft_sil_bwd": (CSRC + "soft_sil_bwd.cu", SOFT_PALLAS + "881"),
     "soft_fwd": (CSRC + "soft_fwd.cu", SOFT_PALLAS + "422"),
     "soft_bwd": (CSRC + "soft_bwd.cu", SOFT_PALLAS + "496"),
+    "mxu_edge_fma": (CSRC + "mxu_edge.cu",
+                     "scripts/mxu_edge_microbench.py:117"),
+    "mxu_edge_tc_bf16": (CSRC + "mxu_edge.cu",
+                         "scripts/mxu_edge_microbench.py:144"),
+    "mxu_edge_tc_tf32x3": (CSRC + "mxu_edge.cu",
+                           "scripts/mxu_edge_microbench.py:144"),
+    "mxu_full_prod": (CSRC + "mxu_full.cu",
+                      "scripts/mxu_full_microbench.py:85"),
+    "mxu_full_tc": (CSRC + "mxu_full.cu",
+                    "scripts/mxu_full_microbench.py:113"),
+    "patch_eval": (CSRC + "patch_eval.cu",
+                   "scripts/patch_scatter_microbench.py:191"),
 }
 # The card's published peaks (H100 SXM data sheet, at 700 W): device
 # memory bytes/s and fp32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# Dense tensor-core products (the same data sheet).
+PEAK_TF32_PER_S = 495e12
+PEAK_BF16_PER_S = 989e12
 # fp32 operations per (pixel, triangle) pair, read off the kernel bodies.
 # Hard kernels: 3 edge functions (12), the z interpolation and depth test
 # (6). Soft kernels: bench.py:321-348's constants for the full forward
@@ -192,11 +222,13 @@ def grad_error(name, label, kernel, plain, rtol):
     return err, scale
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, tensor_ops=0, tensor_peak=PEAK_TF32_PER_S):
     """(least time in ms, what bounds it) for moving n_bytes through device
-    memory and doing n_ops fp32 operations, at the card's peaks."""
+    memory, doing n_ops fp32 operations and tensor_ops tensor-core
+    operations at tensor_peak, at the card's peaks (the units run at once:
+    the larger time bounds)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_FP32_PER_S
+    t_ops = max(n_ops / PEAK_FP32_PER_S, tensor_ops / tensor_peak)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -743,6 +775,178 @@ def soft_phases(dev, card, teapot):
     return errors, rel_errors, launches, ms, bounds
 
 
+def microbench_phase(dev, card):
+    """Phase 13: the microbenchmark kernels (S1-S3) on the card. Returns
+    (errors, relative errors, launches, ms, plain ms, library ms, bounds),
+    each keyed by kernel name."""
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch.microbench import common
+    from pytorch_mesh_renderer_tpu_torch.microbench import mxu_edge as me
+    from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
+    from pytorch_mesh_renderer_tpu_torch.microbench import (
+        patch_scatter as ps)
+    from pytorch_mesh_renderer_tpu_torch.utils import scenes
+
+    counters = ((me.LAUNCHES, "mxu_edge_"), (mf.LAUNCHES, "mxu_full_"),
+                (ps.LAUNCHES, ""))
+    visits, chunk = 512, 8
+    patch = ps.parse_patch("16x8")
+
+    # The main path: each module's run, its launches counted from 0.
+    for counts, _ in counters:
+        counts.update((key, 0) for key in counts)
+    edge = me.run(visits, chunk, 30, dev.type)
+    log("microbench", "mxu_edge " + json.dumps(edge))
+    full = mf.run(visits, chunk, 30, dev.type)
+    log("microbench", "mxu_full " + json.dumps(full))
+    patch_runs = {config: ps.run(config, TEAPOT_BATCH, 20, 3, 32, "16x8", 4,
+                                 dev.type)
+                  for config in ("headline", "stress")}
+    for config, result in patch_runs.items():
+        log("microbench", f"patch_scatter {config} " + json.dumps(result))
+    torch.cuda.synchronize()
+    launches = {prefix + key: n for counts, prefix in counters
+                for key, n in counts.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"microbench: launches {launches}")
+    if not full["covered_px"] > 0:
+        raise AssertionError("mxu_full: no pixel covered")
+    for config, result in patch_runs.items():
+        if not (result["id_mismatch_px"] == 0
+                and result["scatter_id_mismatch_px"] == 0
+                and result["bc_max_err"] <= KERNEL_ATOL
+                and result["z_max_err"] <= KERNEL_ATOL
+                and result["capped_or_overflowed_triangles"] == 0):
+            raise AssertionError(f"patch_scatter {config}: the merges differ "
+                                 f"from K3 or dropped triangles: {result}")
+    log("microbench", f"launches {launches}; both patch merges give K3's ids "
+        "at both configs, bc and z within 1e-6, no triangle dropped")
+
+    # Each kernel vs its plain version at the main path's shapes.
+    errors, rel_errors, ms, plain_ms, library_ms, bounds = ({}, {}, {}, {},
+                                                            {}, {})
+
+    def exact(name, kernel, plain):
+        torch.cuda.synchronize()
+        for k, p in zip(kernel, plain):
+            if not torch.equal(k, p):
+                raise AssertionError(
+                    f"{name}: differs from its plain version at "
+                    f"{int((k != p).sum())} of {k.numel()} values")
+        errors[name] = rel_errors[name] = 0.0
+
+    def timed(name, kernel_fn, plain_fn, library_fn=None, plain_iters=5):
+        ms[name] = common.device_ms(kernel_fn, dev, 30)
+        plain_ms[name] = cuda_time_ms(plain_fn, iters=plain_iters,
+                                      windows=3, warmup=1)
+        library_ms[name] = (common.device_ms(library_fn, dev, 30)
+                            if library_fn else None)
+
+    data, coeff, pix = me.make_inputs(visits, chunk, dev)
+    exact("mxu_edge_fma", [me.launch_fma(data, visits, chunk)],
+          [me.fold_fma_torch(data, visits, chunk)])
+    pairs = visits * chunk * common.N_PIX
+    out_bytes = common.N_PIX * 4
+    timed("mxu_edge_fma", lambda: me.launch_fma(data, visits, chunk),
+          lambda: me.fold_fma_torch(data, visits, chunk),
+          lambda: torch.matmul(coeff, pix).sum(0))
+    bounds["mxu_edge_fma"] = bound_ms(data.numel() * 4 + out_bytes,
+                                      pairs * me.FMA_OPS_PER_PAIR)
+    # The contraction as the script defines it: [visits * 5C, 8] @
+    # [8, 2048], 2 M K N operations per product (three for 3xTF32), and
+    # one fp32 add per product value for the fold.
+    contraction = 2 * coeff.shape[0] * 8 * common.N_PIX
+    fold_ops = coeff.shape[0] * common.N_PIX
+    tc_bytes = (coeff.numel() + pix.numel()) * 4 + out_bytes
+    coeff_bf16, pix_bf16 = coeff.bfloat16(), pix.bfloat16()
+    for name, variant, tensor_ops, peak, library in (
+            ("mxu_edge_tc_bf16", "tc_bf16", contraction, PEAK_BF16_PER_S,
+             lambda: torch.matmul(coeff_bf16, pix_bf16).sum(0)),
+            ("mxu_edge_tc_tf32x3", "tc_tf32x3", 3 * contraction,
+             PEAK_TF32_PER_S, lambda: torch.matmul(coeff, pix).sum(0))):
+        kernel = me.launch_tc(coeff, pix, visits, chunk, variant)
+        plain = me.fold_tc_torch(coeff, pix, variant)
+        torch.cuda.synchronize()
+        errors[name] = float((kernel - plain).abs().max())
+        rel_errors[name] = errors[name] / float(plain.abs().max())
+        if not rel_errors[name] <= me.TC_RTOL:
+            raise AssertionError(f"{name}: {rel_errors[name]} of max |plain| "
+                                 f"> {me.TC_RTOL}")
+        timed(name, lambda v=variant: me.launch_tc(coeff, pix, visits, chunk,
+                                                   v),
+              lambda v=variant: me.fold_tc_torch(coeff, pix, v), library)
+        bounds[name] = bound_ms(tc_bytes, fold_ops, tensor_ops, peak)
+    log("microbench", "mxu_edge kernels vs plain: fma bit for bit; "
+        f"tc_bf16 {rel_errors['mxu_edge_tc_bf16']:.3g}, tc_tf32x3 "
+        f"{rel_errors['mxu_edge_tc_tf32x3']:.3g} of max |plain| (gate "
+        f"{me.TC_RTOL})")
+
+    data, coeff = mf.make_inputs(visits, chunk, dev)
+    exact("mxu_full_prod", mf.launch_prod(data, visits, chunk),
+          mf.zbuffer_prod_torch(data))
+    n_pairs, n_inside = mf.pair_counts(data)
+    outputs = 5 * common.N_PIX * 4
+    timed("mxu_full_prod", lambda: mf.launch_prod(data, visits, chunk),
+          lambda: mf.zbuffer_prod_torch(data))
+    bounds["mxu_full_prod"] = bound_ms(
+        data.numel() * 4 + outputs,
+        n_pairs * (mf.EDGE_OPS + mf.INSIDE_OPS)
+        + n_inside * (mf.DEPTH_OPS + mf.TAIL_OPS))
+    tc_kernel = mf.launch_tc(coeff, visits, chunk)
+    tc_plain = mf.zbuffer_tc_torch(coeff, visits, chunk)
+    torch.cuda.synchronize()
+    id_diff, z_gap, w_gap = mf.check_tc(tc_kernel, tc_plain)
+    errors["mxu_full_tc"] = max(z_gap, w_gap)
+    rel_errors["mxu_full_tc"] = max(z_gap, w_gap / max(
+        float(w.abs().max()) for w in tc_plain[2:]))
+    timed("mxu_full_tc", lambda: mf.launch_tc(coeff, visits, chunk),
+          lambda: mf.zbuffer_tc_torch(coeff, visits, chunk))
+    bounds["mxu_full_tc"] = bound_ms(
+        coeff.numel() * 4 + outputs,
+        n_pairs * mf.INSIDE_OPS + n_inside * mf.TAIL_OPS,
+        3 * 2 * coeff.shape[0] * 8 * common.N_PIX, PEAK_TF32_PER_S)
+    log("microbench", f"mxu_full kernels vs plain: prod bit for bit over "
+        f"{n_pairs} pairs ({n_inside} inside); tc ids differ at {id_diff} "
+        f"pixels, z gap {z_gap:.3g}, edge values {w_gap:.3g} (gate "
+        f"{mf.Z_TOL})")
+
+    name = "patch_eval"
+    errors[name] = rel_errors[name] = 0.0
+    eval_ms, eval_plain_ms, eval_bounds = [], [], []
+    for config, result in patch_runs.items():
+        size, sphere = ps.CONFIGS[config]
+        scene = scenes.build_scene(TEAPOT_BATCH, dev, sphere)
+        rows, bbox = ps.pack(scenes.clip_vertices(scene, size),
+                             scene["triangles"])
+        table, inst_tri, _ = ps.plan(rows, bbox, size, patch, 32, 4)
+        exact(name, ps.launch_patch_eval(table, size, patch),
+              ps.patch_eval_torch(table, size, patch))
+        timed(name, lambda: ps.launch_patch_eval(table, size, patch),
+              lambda: ps.patch_eval_torch(table, size, patch))
+        eval_ms.append(ms[name])
+        eval_plain_ms.append(plain_ms[name])
+        lanes = table.shape[0] * table.shape[1] * ps.LANES
+        eval_bounds.append(bound_ms(
+            table.numel() * 4 + 4 * lanes * 4,
+            result["instances_live"] * ps.LANES * ps.OPS_PER_LANE))
+        log("microbench", f"{card} | patch_eval {config}: bit for bit; "
+            f"{table.shape[1]} instances per image ({result['instances_live']}"
+            f" live in the batch): device {ms[name]:.4f} ms, plain "
+            f"{plain_ms[name]:.4f} ms, bound {eval_bounds[-1][0]:.4f} ms "
+            f"({eval_bounds[-1][1]})")
+    # The kernels line reports the headline config.
+    ms[name], plain_ms[name], bounds[name] = (eval_ms[0], eval_plain_ms[0],
+                                             eval_bounds[0])
+    for name in ms:
+        library = ("none" if library_ms[name] is None
+                   else f"{library_ms[name]:.5f} ms")
+        log("microbench", f"{card} | {name}: device {ms[name]:.5f} ms, plain "
+            f"{plain_ms[name]:.4f} ms, library {library}, bound "
+            f"{bounds[name][0]:.5f} ms ({bounds[name][1]})")
+    return errors, rel_errors, launches, ms, plain_ms, library_ms, bounds
+
+
 def main():
     import torch
 
@@ -761,14 +965,12 @@ def main():
     from pytorch_mesh_renderer_tpu_torch.ops import (
         rasterize_barycentric_cuda as rb)
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
-    from pytorch_mesh_renderer_tpu_torch.utils import kernels, obj_io
+    from pytorch_mesh_renderer_tpu_torch.utils import kernels, scenes
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
-    from pytorch_mesh_renderer_tpu_torch.utils.convert import scene_to_torch
 
     golden_dir = os.path.join(REPO, "tests", "golden")
     oracle_path = os.path.join(REPO, "tests", "oracle",
                                "hard_kernel_cube_64x48.npz")
-    teapot_path = os.path.join(REPO, "assets", "teapot.obj")
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
 
@@ -898,33 +1100,13 @@ def main():
                                      "image")
     log("kernel", "row strips reassemble the full image exactly")
 
-    # The headline scene: bench.py's teapot parameters, built in numpy.
-    v, t, n = obj_io.load_obj(teapot_path)
-    rot = camera.euler_matrices(torch.stack([
-        torch.zeros(TEAPOT_BATCH), torch.linspace(0.0, 1.0, TEAPOT_BATCH),
-        torch.zeros(TEAPOT_BATCH)], dim=-1))[:, :3, :3].numpy()
-    vertices = np.einsum("bij,vj->bvi", rot, v.numpy())
-    teapot = scene_to_torch(dict(
-        vertices=vertices,
-        triangles=t.numpy()[:, ::-1],  # the hard renderer wants CW
-        normals=np.einsum("bij,vj->bvi", rot, n.numpy()),
-        diffuse=np.broadcast_to(np.array([0.8, 0.6, 0.4]), vertices.shape),
-        eye=np.tile([[0.0, 1.0, 4.0]], [TEAPOT_BATCH, 1]),
-        center=np.zeros([TEAPOT_BATCH, 3]),
-        up=np.tile([[0.0, 1.0, 0.0]], [TEAPOT_BATCH, 1]),
-        lights=np.tile([[[-2.0, 2.0, 4.0], [3.0, -1.0, 4.0]]],
-                       [TEAPOT_BATCH, 1, 1]),
-        intensities=np.ones([TEAPOT_BATCH, 2, 3])), dev)
+    # The headline scene: bench.py's teapot parameters (utils/scenes.py).
+    teapot = scenes.build_scene(TEAPOT_BATCH, dev)
     scene_args = [teapot[k] for k in (
         "vertices", "triangles", "normals", "diffuse", "eye", "center", "up",
         "lights", "intensities")]
     # The rasterizer's inputs exactly as render builds them (A = 9).
-    ones = torch.ones(TEAPOT_BATCH, **f32)
-    teapot_cam = camera.clip_space_transforms(
-        teapot["eye"], teapot["center"], teapot["up"], 40.0 * ones,
-        0.01 * ones, 10.0 * ones, TEAPOT_SIZE, TEAPOT_SIZE)
-    teapot_clip = camera.transform_homogeneous(teapot_cam,
-                                               teapot["vertices"])
+    teapot_clip = scenes.clip_vertices(teapot, TEAPOT_SIZE)
     teapot_attrs = torch.cat([teapot["normals"], teapot["vertices"],
                               teapot["diffuse"]], dim=2)
     teapot_raster = (teapot_clip, teapot_attrs, teapot["triangles"])
@@ -1363,6 +1545,15 @@ def main():
     ms.update(soft_ms)
     bounds.update(soft_bounds)
 
+    # 13. The microbenchmark kernels: each launched on its module's run.
+    (mb_errors, mb_rel, mb_launches, mb_ms, mb_plain_ms, library_ms,
+     mb_bounds) = microbench_phase(dev, card)
+    errors.update(mb_errors)
+    rel_errors.update(mb_rel)
+    launches.update(mb_launches)
+    ms.update({name: (mb_ms[name], mb_plain_ms[name]) for name in mb_ms})
+    bounds.update(mb_bounds)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -1370,7 +1561,7 @@ def main():
         "max_abs_err": errors[name], "max_rel_err": rel_errors[name],
         "ms": ms[name][0],
         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1], "library_ms": None}
+        "bound_by": bounds[name][1], "library_ms": library_ms.get(name)}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

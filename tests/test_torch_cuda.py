@@ -36,6 +36,9 @@ import pytest
 import torch
 
 from pytorch_mesh_renderer_tpu_torch import config as config_lib
+from pytorch_mesh_renderer_tpu_torch.microbench import mxu_edge as me
+from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
+from pytorch_mesh_renderer_tpu_torch.microbench import patch_scatter as ps
 from pytorch_mesh_renderer_tpu_torch.models import (mesh_renderer, shapes,
                                                     soft_mesh_renderer)
 from pytorch_mesh_renderer_tpu_torch.ops import camera
@@ -43,7 +46,7 @@ from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+from pytorch_mesh_renderer_tpu_torch.utils import scenes, test_utils
 
 pytestmark = pytest.mark.cuda
 
@@ -448,3 +451,79 @@ def test_soft_large_mesh_renders_in_one_launch(dev):
         sphere, k7, alpha, test_utils.soft_cotangents(1, 64, 64, dev))
     assert _soft_launches() == tuple(b + 1 for b in before)
     assert 0.2 < float((alpha > 0.5).float().mean()) < 0.9
+
+
+# The microbenchmark kernels (S1-S3). fma, prod and patch_eval run the
+# plain versions' fp32 operations in their order: equal bit for bit. The
+# tensor-core variants round their operands as the plain versions do and
+# sum in the tensor cores' order: within mxu_edge.TC_RTOL of max |plain|,
+# and for mxu_full's tc the gate of mxu_full.check_tc (Z_TOL).
+
+
+@pytest.mark.parametrize("visits,chunk", [(4, 8), (7, 4), (512, 8)])
+def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
+    data, coeff, pix = me.make_inputs(visits, chunk, dev)
+    before = dict(me.LAUNCHES)
+    assert torch.equal(me.launch_fma(data, visits, chunk),
+                       me.fold_fma_torch(data, visits, chunk))
+    for variant in ("tc_bf16", "tc_tf32x3"):
+        kernel = me.launch_tc(coeff, pix, visits, chunk, variant)
+        plain = me.fold_tc_torch(coeff, pix, variant)
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape == (1, 2048)
+        assert (float((kernel - plain).abs().max())
+                <= me.TC_RTOL * float(plain.abs().max()))
+    assert me.LAUNCHES == {name: n + 1 for name, n in before.items()}
+
+
+@pytest.mark.parametrize("visits,chunk", [(64, 8), (512, 8), (12, 16)])
+def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
+    data, coeff = mf.make_inputs(visits, chunk, dev)
+    before = dict(mf.LAUNCHES)
+    prod = mf.launch_prod(data, visits, chunk)
+    for k, p in zip(prod, mf.zbuffer_prod_torch(data)):
+        assert torch.equal(k, p)
+    assert int((prod[1] >= 0).sum()) > 0
+    mf.check_tc(mf.launch_tc(coeff, visits, chunk),
+                     mf.zbuffer_tc_torch(coeff, visits, chunk))
+    assert mf.LAUNCHES == {name: n + 1 for name, n in before.items()}
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mf.launch_tc(coeff[:visits * 5 * 4], visits, 4)
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_patch_eval_kernel_matches_plain_version(dev, size):
+    scene = scenes.build_scene(2, dev)
+    rows, bbox = ps.pack(scenes.clip_vertices(scene, size),
+                         scene["triangles"])
+    table, _, n_dropped = ps.plan(rows, bbox, size, (16, 8), 32, 4)
+    assert int(n_dropped.sum()) == 0
+    before = ps.LAUNCHES["patch_eval"]
+    kernel = ps.launch_patch_eval(table, size, (16, 8))
+    assert ps.LAUNCHES["patch_eval"] == before + 1
+    plain = ps.patch_eval_torch(table, size, (16, 8))
+    for k, p in zip(kernel, plain):
+        assert torch.equal(k, p)
+    assert int((kernel[0] < 2.0).sum()) > 0
+
+
+@pytest.mark.parametrize("config", ["headline", "stress"])
+def test_patch_scatter_merges_equal_the_production_forward(dev, config):
+    result = ps.run(config, batch=1, iters=1, windows=1, device="cuda")
+    assert result["capped_or_overflowed_triangles"] == 0
+    assert result["id_mismatch_px"] == result["scatter_id_mismatch_px"] == 0
+    assert result["bc_max_err"] <= 1e-6 and result["z_max_err"] <= 1e-6
+
+
+def test_microbench_wrappers_reject_what_the_kernels_do_not_take(dev):
+    data, coeff, pix = me.make_inputs(4, 8, dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        me.launch_fma(data.cpu(), 4, 8)
+    with pytest.raises(ValueError, match="shape"):
+        me.launch_fma(data, 5, 8)
+    with pytest.raises(TypeError, match="float32"):
+        me.launch_tc(coeff.double(), pix, 4, 8, "tc_tf32x3")
+    with pytest.raises(ValueError, match="tensor-core"):
+        me.launch_tc(coeff, pix, 4, 8, "fma")
+    with pytest.raises(ValueError, match="CUDA"):
+        ps.launch_patch_eval(torch.zeros(1, 8, 20), 64, (16, 8))
