@@ -836,10 +836,11 @@ def microbench_phase(dev, card):
                     f"{int((k != p).sum())} of {k.numel()} values")
         errors[name] = rel_errors[name] = 0.0
 
-    def timed(name, kernel_fn, plain_fn, library_fn=None, plain_iters=5):
+    def timed(name, kernel_fn, plain_fn, library_fn=None):
+        """Device time of the kernel (and the library call) by
+        torch.profiler; the plain version by CUDA events."""
         ms[name] = common.device_ms(kernel_fn, dev, 30)
-        plain_ms[name] = cuda_time_ms(plain_fn, iters=plain_iters,
-                                      windows=3, warmup=1)
+        plain_ms[name] = cuda_time_ms(plain_fn, iters=5, windows=3, warmup=1)
         library_ms[name] = (common.device_ms(library_fn, dev, 30)
                             if library_fn else None)
 
@@ -919,7 +920,7 @@ def microbench_phase(dev, card):
         scene = scenes.build_scene(TEAPOT_BATCH, dev, sphere)
         rows, bbox = ps.pack(scenes.clip_vertices(scene, size),
                              scene["triangles"])
-        table, inst_tri, _ = ps.plan(rows, bbox, size, patch, 32, 4)
+        table = ps.plan(rows, bbox, size, patch, 32, 4)[0]
         exact(name, ps.launch_patch_eval(table, size, patch),
               ps.patch_eval_torch(table, size, patch))
         timed(name, lambda: ps.launch_patch_eval(table, size, patch),

@@ -107,6 +107,7 @@ __global__ void __launch_bounds__(kEdgeThreads) mxu_edge_tc_kernel(
 
   // B fragments, constant over the visits.
   uint32_t b_hi[kTiles][2], b_lo[kTiles][2];
+#pragma unroll
   for (int t = 0; t < kTiles; ++t) {
     const int n = base + 8 * t + g;
     if constexpr (kBf16) {  // rows 2q, 2q+1; rows 8-15 are the K padding
@@ -115,6 +116,7 @@ __global__ void __launch_bounds__(kEdgeThreads) mxu_edge_tc_kernel(
       b_hi[t][1] = 0u;
       b_lo[t][0] = b_lo[t][1] = 0u;
     } else {  // rows q and q + 4
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const Tf32Split s = split_tf32(pix[(q + 4 * k) * kEdgePix + n]);
         b_hi[t][k] = s.hi;
@@ -145,12 +147,14 @@ __global__ void __launch_bounds__(kEdgeThreads) mxu_edge_tc_kernel(
             r1 < m_rows ? rows[r1 * kRowCols + q] : 0.0f,
             r0 < m_rows ? rows[r0 * kRowCols + q + 4] : 0.0f,
             r1 < m_rows ? rows[r1 * kRowCols + q + 4] : 0.0f};
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
           const Tf32Split s = split_tf32(x[k]);
           a_hi[k] = s.hi;
           a_lo[k] = s.lo;
         }
       }
+#pragma unroll
       for (int t = 0; t < kTiles; ++t) {
         float d[4];
         if constexpr (kBf16) {
@@ -159,12 +163,14 @@ __global__ void __launch_bounds__(kEdgeThreads) mxu_edge_tc_kernel(
         } else {
           mma_tf32x3(d, a_hi, a_lo, b_hi[t], b_lo[t]);
         }
+#pragma unroll
         for (int i = 0; i < 4; ++i) acc[t][i] = acc[t][i] + d[i];
       }
     }
   }
 
   // Rows g and g + 8, then the 8 row groups (lanes 4 apart).
+#pragma unroll
   for (int t = 0; t < kTiles; ++t) {
     float col[2] = {acc[t][0] + acc[t][2], acc[t][1] + acc[t][3]};
     for (int i = 0; i < 2; ++i) {

@@ -128,7 +128,10 @@ __global__ void __launch_bounds__(kThreads) mxu_full_tc_kernel(
   Carry carry[kTiles][2];
 #pragma unroll
   for (int t = 0; t < kTiles; ++t) {
-    for (int c = 0; c < 2; ++c) carry[t][c] = {kEmptyZ, -1, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      carry[t][c] = Carry{kEmptyZ, -1, 0.0f, 0.0f, 0.0f};
+    }
   }
 
   const int v0 = blockIdx.z * per_split;
@@ -170,7 +173,7 @@ __global__ void __launch_bounds__(kThreads) mxu_full_tc_kernel(
           if (!(min_e >= 0.0f && max_e > 0.0f)) continue;
           const float z = num / (den != 0.0f ? den : 1.0f);
           if (z >= -1.0f && z <= 1.0f && better(z, id, carry[t][c])) {
-            carry[t][c] = {z, id, e0, e1, e2};
+            carry[t][c] = Carry{z, id, e0, e1, e2};
           }
         }
       }
@@ -211,8 +214,8 @@ __global__ void __launch_bounds__(kThreads) mxu_full_merge_kernel(
     const size_t i = static_cast<size_t>(j) * kFullPix + p;
     if (better(part_z[i], part_id[i], best)) {
       const size_t k = static_cast<size_t>(j) * 3 * kFullPix + p;
-      best = {part_z[i], part_id[i], part_w[k], part_w[k + kFullPix],
-              part_w[k + 2 * kFullPix]};
+      best = Carry{part_z[i], part_id[i], part_w[k], part_w[k + kFullPix],
+                   part_w[k + 2 * kFullPix]};
     }
   }
   z[p] = best.z;

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops import rasterize_cuda as rc
+from ..ops.barycentric import pixel_is_inside
 from . import common
 
 VARIANTS = ("prod", "tc")
@@ -108,12 +109,6 @@ def _winner(e0, e1, e2, z, valid):
     return (torch.where(covered, best_z, 2.0), best_id.to(torch.int32), *w)
 
 
-def _inside(e0, e1, e2):
-    min_e = torch.minimum(torch.minimum(e0, e1), e2)
-    max_e = torch.maximum(torch.maximum(e0, e1), e2)
-    return (min_e >= 0.0) & (max_e > 0.0)
-
-
 def zbuffer_prod_torch(data):
     """Plain version of the prod kernel: (z, id i32, we0, we1, we2), each
     [16, 128], from [T, 16] packed rows (T = visits * C)."""
@@ -129,7 +124,7 @@ def zbuffer_prod_torch(data):
     num = e0 * col(9) + e1 * col(10) + e2 * col(11)
     den = e0 * col(12) + e1 * col(13) + e2 * col(14)
     z = num / torch.where(den != 0.0, den, 1.0)
-    valid = (_inside(e0, e1, e2) & (col(15) > 0.0) & (z >= -1.0)
+    valid = (pixel_is_inside(e0, e1, e2) & (col(15) > 0.0) & (z >= -1.0)
              & (z <= 1.0))
     return tuple(t.view(common.TILE_H, common.TILE_W)
                  for t in _winner(e0, e1, e2, z, valid))
@@ -147,7 +142,7 @@ def zbuffer_tc_torch(coeff, visits, chunk):
         out[:, k * chunk:(k + 1) * chunk].reshape(visits * chunk, -1)
         for k in range(5))
     z = num / torch.where(den != 0.0, den, 1.0)
-    valid = _inside(e0, e1, e2) & (z >= -1.0) & (z <= 1.0)
+    valid = pixel_is_inside(e0, e1, e2) & (z >= -1.0) & (z <= 1.0)
     return tuple(t.view(1, common.N_PIX)
                  for t in _winner(e0, e1, e2, z, valid))
 
@@ -179,7 +174,7 @@ def pair_counts(data):
     px, py = common.tile_pixel_coords(data.device)
     e = [data[:, 3 * i, None] * px + data[:, 3 * i + 1, None] * py
          + data[:, 3 * i + 2, None] for i in range(3)]
-    return data.shape[0] * common.N_PIX, int(_inside(*e).sum())
+    return data.shape[0] * common.N_PIX, int(pixel_is_inside(*e).sum())
 
 
 def _outputs(device, shape):

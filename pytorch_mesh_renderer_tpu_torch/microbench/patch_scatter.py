@@ -49,6 +49,7 @@ import torch
 
 from ..ops import rasterize_barycentric_cuda as rb
 from ..ops import rasterize_cuda as rc
+from ..ops.barycentric import pixel_is_inside
 from ..utils import scenes
 from . import common
 
@@ -182,9 +183,7 @@ def patch_eval_torch(table, size, patch):
     e0 = col(0) * px + col(1) * py + col(2)
     e1 = col(3) * px + col(4) * py + col(5)
     e2 = col(6) * px + col(7) * py + col(8)
-    min_e = torch.minimum(torch.minimum(e0, e1), e2)
-    max_e = torch.maximum(torch.maximum(e0, e1), e2)
-    inside = (min_e >= 0.0) & (max_e > 0.0)
+    inside = pixel_is_inside(e0, e1, e2)
     num = e0 * col(9) + e1 * col(10) + e2 * col(11)
     den = e0 * col(12) + e1 * col(13) + e2 * col(14)
     z = num / torch.where(den != 0.0, den, 1.0)

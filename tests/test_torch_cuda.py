@@ -29,6 +29,11 @@ differ in depth: on the two-triangle scene every triangle lies at NDC z
 f32 cancellation noise (per-pixel terms W (shade - rgb) z / gamma^2 of ~4e2
 that cancel). The soft scenes and gates are `utils/test_utils`'s, shared
 with chip_smoke.py.
+
+The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
+patch_eval equal their plain versions bit for bit; the tensor-core
+variants are held at their modules' tolerances (`mxu_edge.TC_RTOL`,
+`mxu_full.check_tc`); both patch merges give K3's ids.
 """
 
 import numpy as np
@@ -452,12 +457,6 @@ def test_soft_large_mesh_renders_in_one_launch(dev):
     assert _soft_launches() == tuple(b + 1 for b in before)
     assert 0.2 < float((alpha > 0.5).float().mean()) < 0.9
 
-
-# The microbenchmark kernels (S1-S3). fma, prod and patch_eval run the
-# plain versions' fp32 operations in their order: equal bit for bit. The
-# tensor-core variants round their operands as the plain versions do and
-# sum in the tensor cores' order: within mxu_edge.TC_RTOL of max |plain|,
-# and for mxu_full's tc the gate of mxu_full.check_tc (Z_TOL).
 
 
 @pytest.mark.parametrize("visits,chunk", [(4, 8), (7, 4), (512, 8)])

@@ -4,7 +4,7 @@ The machine with the card has no JAX, so the port must import neither jax
 nor the JAX package (whose __init__ imports jax). A fresh interpreter with
 `sys.modules["jax"] = None` makes any such import fail; in it, the port
 must import, render a cube on the CPU with the hard and the soft renderer,
-and take their gradients.
+take their gradients, and run the microbenchmarks' plain versions.
 """
 
 import os
@@ -23,7 +23,9 @@ from pytorch_mesh_renderer_tpu_torch.ops import (  # noqa: F401
     losses, rasterize_barycentric_cuda, rasterize_cuda, soft_rasterize,
     soft_rasterize_cuda)
 from pytorch_mesh_renderer_tpu_torch.utils import (  # noqa: F401
-    convert, kernels, test_utils)
+    convert, kernels, scenes, test_utils)
+from pytorch_mesh_renderer_tpu_torch.microbench import (
+    mxu_edge, mxu_full, patch_scatter)
 
 v, t, n = pmt.shapes.cube(2.0)
 rot = pmt.camera.euler_matrices(torch.tensor([[-20.0, 0.0, 60.0]]))[:, :3, :3]
@@ -55,6 +57,13 @@ edges = pmt.mesh.compute_edges_list(t)
 (pmt.losses.silhouette_mse_loss(alpha, torch.ones_like(alpha))
  + pmt.losses.edge_loss(vs[0], edges)).backward()
 assert bool(torch.isfinite(vs.grad).all()) and float(vs.grad.abs().max()) > 0
+# The microbenchmarks' plain versions and the bench scene.
+assert mxu_edge.run(4, 8, 1, "cpu")["tc_tf32x3_relerr"] <= 1e-6
+assert mxu_full.run(64, 8, 1, "cpu")["covered_px"] > 0
+teapot = scenes.build_scene(1, "cpu")
+rows, bbox = patch_scatter.pack(scenes.clip_vertices(teapot, 64),
+                                teapot["triangles"])
+assert patch_scatter.plan(rows, bbox, 64, (16, 8), 32, 4)[0].shape[1] > 0
 leaked = sorted(m for m in sys.modules
                 if m == "pytorch_mesh_renderer_tpu"
                 or m.startswith("pytorch_mesh_renderer_tpu."))
