@@ -14,10 +14,11 @@
 // folded into one sum per pixel: out[p] = sum over pairs of
 // e0 + e1 + e2 + num + den.
 //
-// What bounds it: fp32 issue. At 512 visits of 8 triangles that is 8.4e6
-// pairs of ~27 operations (fma) against 0.33 MB of input; the tensor-core
-// variants turn the 22 operations of the five affine functions into
-// [5C, 8] x [8, 8] tile products and keep ~5 for the fold.
+// What bounds it: fp32 instruction throughput. At 512 visits of 8
+// triangles that is 8.4e6 pairs of ~27 operations (fma) against 0.33 MB of
+// input; the tensor-core variants turn the 22 operations of the five
+// affine functions into [5C, 8] x [8, 8] tile products and keep ~5 for the
+// fold.
 //
 // What the design does about it. The TPU ran the visit loop in sequence on
 // one core over one tile; 2,048 pixels at one thread each fill 8 of the

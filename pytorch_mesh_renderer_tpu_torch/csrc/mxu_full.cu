@@ -12,9 +12,10 @@
 // per pixel the smallest valid z, ties to the larger id, and the winner's
 // raw edge values; z = 2, id = -1 and zeros where no triangle is valid.
 //
-// What bounds it: fp32 issue, ~18 operations for every (triangle, pixel)
-// pair and ~16 more for the pairs inside a triangle, 8.4e6 pairs at 512
-// visits of 8, against 0.26 MB (prod) or 0.66 MB (tc) of input.
+// What bounds it: fp32 instruction throughput, ~18 operations for every
+// (triangle, pixel) pair and ~16 more for the pairs inside a triangle,
+// 8.4e6 pairs at 512 visits of 8, against 0.26 MB (prod) or 0.66 MB (tc)
+// of input.
 //
 // What the design does about it. As in mxu_edge.cu, 2,048 pixels fill 8
 // SMs, so both variants split the visits over `splits` blocks per 16x16
