@@ -1,6 +1,7 @@
 """What the microbenchmark modules share: the tile the first two evaluate,
-the split of their visits over blocks, the TF32 rounding of the
-tensor-core variants, devices and timers."""
+the split of their visits over blocks, the plain versions' edge and depth
+arithmetic, the TF32 rounding of the tensor-core variants, the kernels'
+operand checks and launch, devices and timers."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops import rasterize_cuda as rc
 from ..utils import kernels
 
 # The one tile that scripts/mxu_*_microbench.py evaluate: 16 rows of 128
@@ -42,6 +44,22 @@ def tile_pixel_coords(device):
     return px, py
 
 
+def affine_values(rows, px, py):
+    """(e0, e1, e2, num, den) of packed rows [..., >= 15] at pixel centres
+    px, py that broadcast against [..., 1]: e_i = a_i px + b_i py + c_i
+    (columns 3i..3i+2), num = sum e_i z_i (9-11), den = sum e_i w_i
+    (12-14), in the kernels' operation order (rasterize_common.cuh)."""
+    def col(k):
+        return rows[..., k, None]
+
+    e0 = col(0) * px + col(1) * py + col(2)
+    e1 = col(3) * px + col(4) * py + col(5)
+    e2 = col(6) * px + col(7) * py + col(8)
+    num = e0 * col(9) + e1 * col(10) + e2 * col(11)
+    den = e0 * col(12) + e1 * col(13) + e2 * col(14)
+    return e0, e1, e2, num, den
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to TF32 (10 explicit mantissa bits), to nearest with ties
     away from zero, on the bit pattern: what `cvt.rna.tf32.f32` does, with
@@ -64,6 +82,30 @@ def resolve_device(name: str) -> torch.device:
         raise RuntimeError("--device cuda needs an NVIDIA GPU; --device cpu "
                            "runs the plain versions")
     return device
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name, or `cpu`: the JSON lines' `device`."""
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def check_operands(device: torch.device, operands) -> None:
+    """Raise unless every (name, tensor, shape) of `operands` is a
+    contiguous f32 tensor on the CUDA `device`, of `shape` (None matches
+    any extent), with 16-byte aligned data (the kernels read rows as
+    float4)."""
+    rc.check_kernel_operands(device, [(name, tensor, torch.float32)
+                                      for name, tensor, _ in operands])
+    for name, tensor, shape in operands:
+        if tensor.dim() != len(shape) or any(
+                want is not None and got != want
+                for got, want in zip(tensor.shape, shape)):
+            want = ", ".join("*" if s is None else str(s) for s in shape)
+            raise ValueError(f"{name} has shape {tuple(tensor.shape)}; want "
+                             f"[{want}]")
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def launch(entry: str, device: torch.device, *args) -> None:
@@ -99,6 +141,15 @@ def wall_ms(fn, device, iters, windows=3):
                 fn()
             per_call.append((time.perf_counter() - t0) * 1e3 / iters)
     return statistics.median(per_call)
+
+
+def times_us(name, fn, device, iters):
+    """A variant's times per call in µs, as the JSON lines key them:
+    `<name>_us`, device_ms; on a card also `<name>_call_us`, wall_ms."""
+    times = {name + "_us": device_ms(fn, device, iters) * 1e3}
+    if device.type == "cuda":
+        times[name + "_call_us"] = wall_ms(fn, device, iters) * 1e3
+    return times
 
 
 def device_ms(fn, device, iters):

@@ -52,7 +52,6 @@ import json
 import numpy as np
 import torch
 
-from ..ops import rasterize_cuda as rc
 from . import common
 
 VARIANTS = ("fma", "tc_bf16", "tc_tf32x3")
@@ -109,16 +108,8 @@ def fold_fma_torch(data, visits, chunk):
     visit order, and the splits' sums are added to 0 in split order.
     """
     px, py = common.tile_pixel_coords(data.device)
-    rows = data.view(visits, chunk, 16, 1)
-
-    def col(k):  # [V, C, 1]
-        return rows[:, :, k]
-
-    e0 = col(0) * px + col(1) * py + col(2)  # [V, C, N]
-    e1 = col(3) * px + col(4) * py + col(5)
-    e2 = col(6) * px + col(7) * py + col(8)
-    num = e0 * col(9) + e1 * col(10) + e2 * col(11)
-    den = e0 * col(12) + e1 * col(13) + e2 * col(14)
+    e0, e1, e2, num, den = common.affine_values(  # each [V, C, N]
+        data.view(visits, chunk, 16), px, py)
     terms = e0 + e1 + e2 + num + den
     visit_sum = terms[:, 0]
     for c in range(1, chunk):
@@ -152,19 +143,10 @@ def fold_tc_torch(coeff, pix, variant):
     return product.sum(0, keepdim=True)
 
 
-def _check_rows(name, tensor, rows, cols):
-    if tensor.shape != (rows, cols):
-        raise ValueError(f"{name} has shape {tuple(tensor.shape)}; want "
-                         f"[{rows}, {cols}]")
-    if tensor.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def launch_fma(data, visits, chunk):
     """The fma kernel (csrc/mxu_edge.cu) on [visits*C, 16] CUDA rows;
     fold_fma_torch's contract."""
-    rc.check_kernel_operands(data.device, [("data", data, torch.float32)])
-    _check_rows("data", data, visits * chunk, 16)
+    common.check_operands(data.device, [("data", data, (visits * chunk, 16))])
     splits = common.visit_splits(visits)
     partial = torch.empty(splits, common.N_PIX, device=data.device)
     out = torch.empty(common.TILE_H, common.TILE_W, device=data.device)
@@ -180,10 +162,9 @@ def launch_tc(coeff, pix, visits, chunk, variant):
     [visits*5C, 8] and pix [8, 2048]; fold_tc_torch's contract."""
     if variant not in ("tc_bf16", "tc_tf32x3"):
         raise ValueError(f"not a tensor-core variant: {variant!r}")
-    rc.check_kernel_operands(coeff.device, [
-        ("coeff", coeff, torch.float32), ("pix", pix, torch.float32)])
-    _check_rows("coeff", coeff, visits * 5 * chunk, 8)
-    _check_rows("pix", pix, 8, common.N_PIX)
+    common.check_operands(coeff.device, [
+        ("coeff", coeff, (visits * 5 * chunk, 8)),
+        ("pix", pix, (8, common.N_PIX))])
     splits = common.visit_splits(visits)
     partial = torch.empty(splits, common.N_PIX, device=coeff.device)
     out = torch.empty(1, common.N_PIX, device=coeff.device)
@@ -222,14 +203,10 @@ def run(visits=512, chunk=8, iters=30, device="cuda"):
             results[name + "_relerr"] = float(
                 (flat - ref).abs().max()
                 / max(1e-9, float(ref.abs().max())))
-        results[name + "_us"] = common.device_ms(call, dev, iters) * 1e3
-        if dev.type == "cuda":
-            results[name + "_call_us"] = common.wall_ms(call, dev,
-                                                        iters) * 1e3
+        results.update(common.times_us(name, call, dev, iters))
     results.update(chunk=chunk, visits=visits,
                    tile=[common.TILE_H, common.TILE_W],
-                   device=(torch.cuda.get_device_name(dev)
-                           if dev.type == "cuda" else "cpu"))
+                   device=common.device_name(dev))
     for name in VARIANTS[1:]:
         results[name + "_speedup"] = results["fma_us"] / results[name + "_us"]
     return results

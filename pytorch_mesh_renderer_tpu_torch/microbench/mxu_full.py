@@ -46,7 +46,6 @@ import json
 import numpy as np
 import torch
 
-from ..ops import rasterize_cuda as rc
 from ..ops.barycentric import pixel_is_inside
 from . import common
 
@@ -113,19 +112,10 @@ def zbuffer_prod_torch(data):
     """Plain version of the prod kernel: (z, id i32, we0, we1, we2), each
     [16, 128], from [T, 16] packed rows (T = visits * C)."""
     px, py = common.tile_pixel_coords(data.device)
-    rows = data[:, :, None]
-
-    def col(k):  # [T, 1]
-        return rows[:, k]
-
-    e0 = col(0) * px + col(1) * py + col(2)  # [T, N]
-    e1 = col(3) * px + col(4) * py + col(5)
-    e2 = col(6) * px + col(7) * py + col(8)
-    num = e0 * col(9) + e1 * col(10) + e2 * col(11)
-    den = e0 * col(12) + e1 * col(13) + e2 * col(14)
+    e0, e1, e2, num, den = common.affine_values(data, px, py)  # [T, N]
     z = num / torch.where(den != 0.0, den, 1.0)
-    valid = (pixel_is_inside(e0, e1, e2) & (col(15) > 0.0) & (z >= -1.0)
-             & (z <= 1.0))
+    valid = (pixel_is_inside(e0, e1, e2) & (data[:, 15, None] > 0.0)
+             & (z >= -1.0) & (z <= 1.0))
     return tuple(t.view(common.TILE_H, common.TILE_W)
                  for t in _winner(e0, e1, e2, z, valid))
 
@@ -172,8 +162,7 @@ def check_tc(kernel, plain):
 def pair_counts(data):
     """(pairs, inside pairs) of the table: what a bound counts."""
     px, py = common.tile_pixel_coords(data.device)
-    e = [data[:, 3 * i, None] * px + data[:, 3 * i + 1, None] * py
-         + data[:, 3 * i + 2, None] for i in range(3)]
+    e = common.affine_values(data, px, py)[:3]
     return data.shape[0] * common.N_PIX, int(pixel_is_inside(*e).sum())
 
 
@@ -184,27 +173,22 @@ def _outputs(device, shape):
             torch.empty((3,) + shape, **f32))
 
 
-def _launch(entry, table, cols, rows, visits, chunk, shape, *extra):
-    rc.check_kernel_operands(table.device, [("table", table, torch.float32)])
-    if table.shape != (rows, cols):
-        raise ValueError(f"the table has shape {tuple(table.shape)}; want "
-                         f"[{rows}, {cols}]")
-    if table.data_ptr() % 16:
-        raise ValueError("the table must be 16-byte aligned")
+def _launch(entry, table, table_shape, visits, chunk, shape):
+    common.check_operands(table.device, [("table", table, table_shape)])
     splits = common.visit_splits(visits)
     part_z, part_id, part_w = _outputs(table.device, (splits, common.N_PIX))
     z, ids, w = _outputs(table.device, shape)
     common.launch(entry, table.device, table.data_ptr(), part_z.data_ptr(),
                   part_id.data_ptr(), part_w.data_ptr(), z.data_ptr(),
                   ids.data_ptr(), w.data_ptr(), visits, chunk, splits,
-                  common.PIXEL_SCALE, *extra)
+                  common.PIXEL_SCALE)
     return z, ids, w[0], w[1], w[2]
 
 
 def launch_prod(data, visits, chunk):
     """The prod kernel (csrc/mxu_full.cu) on CUDA [visits*C, 16] rows;
     zbuffer_prod_torch's contract."""
-    out = _launch("mxu_full_prod", data, 16, visits * chunk, visits, chunk,
+    out = _launch("mxu_full_prod", data, (visits * chunk, 16), visits, chunk,
                   (common.TILE_H, common.TILE_W))
     LAUNCHES["prod"] += 1
     return out
@@ -217,7 +201,7 @@ def launch_tc(coeff, visits, chunk):
     if chunk % 8:
         raise ValueError(f"the tc kernel needs a chunk that is a multiple of"
                          f" 8, got {chunk}")
-    out = _launch("mxu_full_tc", coeff, 8, visits * 5 * chunk, visits,
+    out = _launch("mxu_full_tc", coeff, (visits * 5 * chunk, 8), visits,
                   chunk, (1, common.N_PIX))
     LAUNCHES["tc"] += 1
     return out
@@ -252,13 +236,9 @@ def run(visits=512, chunk=8, iters=30, device="cuda"):
                                 - res_t[0].reshape(-1)).abs().max()),
     }
     for name, call in calls.items():
-        results[name + "_us"] = common.device_ms(call, dev, iters) * 1e3
-        if dev.type == "cuda":
-            results[name + "_call_us"] = common.wall_ms(call, dev,
-                                                        iters) * 1e3
+        results.update(common.times_us(name, call, dev, iters))
     results.update(chunk=chunk, visits=visits,
-                   device=(torch.cuda.get_device_name(dev)
-                           if dev.type == "cuda" else "cpu"),
+                   device=common.device_name(dev),
                    speedup=results["prod_us"] / results["tc_us"])
     return results
 

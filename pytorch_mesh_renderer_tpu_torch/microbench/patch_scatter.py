@@ -169,26 +169,15 @@ def patch_eval_torch(table, size, patch):
     191-219): (z, we0, we1, we2), each [B, S, 128] f32."""
     _, pw = patch
     lane = torch.arange(LANES, device=table.device)
-    dx = (lane % pw).float()
-    dy = (lane // pw).float()
-
-    def col(c):  # [B, S, 1]
-        return table[..., c:c + 1]
-
-    fx = col(16) + dx  # pixel column
-    fy = col(17) + dy  # pixel row (row 0 at NDC -1, as production)
+    fx = table[..., 16, None] + (lane % pw).float()  # pixel column
+    fy = table[..., 17, None] + (lane // pw).float()  # row 0 at NDC -1
     scale = rc.pixel_scale(size)
     px = (fx + 0.5) * scale - 1.0
     py = (fy + 0.5) * scale - 1.0
-    e0 = col(0) * px + col(1) * py + col(2)
-    e1 = col(3) * px + col(4) * py + col(5)
-    e2 = col(6) * px + col(7) * py + col(8)
-    inside = pixel_is_inside(e0, e1, e2)
-    num = e0 * col(9) + e1 * col(10) + e2 * col(11)
-    den = e0 * col(12) + e1 * col(13) + e2 * col(14)
+    e0, e1, e2, num, den = common.affine_values(table, px, py)
     z = num / torch.where(den != 0.0, den, 1.0)
-    valid = (inside & (col(15) > 0.0) & (z >= -1.0) & (z <= 1.0)
-             & (fx < size) & (fy < size))
+    valid = (pixel_is_inside(e0, e1, e2) & (table[..., 15, None] > 0.0)
+             & (z >= -1.0) & (z <= 1.0) & (fx < size) & (fy < size))
     wf = valid.float()
     return torch.where(valid, z, 2.0), wf * e0, wf * e1, wf * e2
 
@@ -196,12 +185,8 @@ def patch_eval_torch(table, size, patch):
 def launch_patch_eval(table, size, patch):
     """The patch-eval kernel on a CUDA [B, S, 20] table; patch_eval_torch's
     contract."""
-    rc.check_kernel_operands(table.device, [("table", table, torch.float32)])
-    if table.dim() != 3 or table.shape[-1] != TABLE_COLS:
-        raise ValueError(f"the table has shape {tuple(table.shape)}; want "
-                         f"[B, S, {TABLE_COLS}]")
-    if table.data_ptr() % 16:
-        raise ValueError("the table must be 16-byte aligned")
+    common.check_operands(table.device,
+                          [("table", table, (None, None, TABLE_COLS))])
     n_inst = table.shape[0] * table.shape[1]
     if n_inst * LANES >= 2 ** 31:
         raise ValueError("the table exceeds the kernel's int32 extents")
@@ -369,8 +354,7 @@ def run(config="headline", batch=4, iters=20, windows=3, cap=32,
         "patch_merge_sort_ms": t_sort, "patch_merge_scatter_ms": t_scatter,
         "scatter_id_mismatch_px": int((ids_s != ids_r).sum()),
         "patch_vs_prod": t_prod / t_patch,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": common.device_name(dev),
     }
 
 

@@ -458,7 +458,6 @@ def test_soft_large_mesh_renders_in_one_launch(dev):
     assert 0.2 < float((alpha > 0.5).float().mean()) < 0.9
 
 
-
 @pytest.mark.parametrize("visits,chunk", [(4, 8), (7, 4), (512, 8)])
 def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
     data, coeff, pix = me.make_inputs(visits, chunk, dev)
@@ -484,7 +483,7 @@ def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
         assert torch.equal(k, p)
     assert int((prod[1] >= 0).sum()) > 0
     mf.check_tc(mf.launch_tc(coeff, visits, chunk),
-                     mf.zbuffer_tc_torch(coeff, visits, chunk))
+                mf.zbuffer_tc_torch(coeff, visits, chunk))
     assert mf.LAUNCHES == {name: n + 1 for name, n in before.items()}
     with pytest.raises(ValueError, match="multiple of 8"):
         mf.launch_tc(coeff[:visits * 5 * 4], visits, 4)

@@ -155,11 +155,10 @@ def test_the_cap_and_the_budget_drop_triangles():
     _, inst_tri, n_dropped = ps.plan(rows, bbox, 256, PATCH, 32, 4)
     assert int(n_dropped.sum()) == 0
     live = int((inst_tri < rows.shape[1]).sum())
-    # A budget of one instance per 8 triangles cannot hold them all.
-    _, small_inst, small_dropped = ps.plan(rows, bbox, 256, PATCH, 32, 0)
+    # A budget of one instance per triangle cannot hold them all.
+    _, small_inst, small_dropped = ps.plan(rows, bbox, 256, PATCH, 32, 1)
     assert int(small_dropped.sum()) > 0
-    assert small_inst.shape[1] == 0 or int(
-        (small_inst < rows.shape[1]).sum()) < live
+    assert 0 < int((small_inst < rows.shape[1]).sum()) < live
     # Capped at one instance, every triangle spanning two is dropped.
     _, _, capped = ps.plan(rows, bbox, 256, PATCH, 1, 4)
     assert int(capped.sum()) > 0
