@@ -91,7 +91,6 @@ any result.
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -184,23 +183,13 @@ def gpu_name_and_power_limit():
 
 
 def cuda_time_ms(fn, iters, windows=5, warmup=3):
-    """Median over `windows` of the mean per-call time, by CUDA events."""
+    """Median over `windows` of the mean per-call time, by CUDA events
+    (microbench.common.wall_ms on the card)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / iters)
-    return statistics.median(per_call)
+    from pytorch_mesh_renderer_tpu_torch.microbench import common
+
+    return common.wall_ms(fn, torch.device("cuda"), iters, windows, warmup)
 
 
 def grad_error(name, label, kernel, plain, rtol):
@@ -257,36 +246,11 @@ KERNEL_NAME = re.compile(r"(rasterize|soft)\w*_kernel")
 
 
 def kernel_device_ms(by_name):
-    """'name ms, ...' of the repository's kernels in a device_profile."""
+    """'name ms, ...' of the repository's kernels in a device_profile's
+    breakdown."""
     return ", ".join(
         f"{match.group(0)} {t:.4f} ms" for name, t in by_name.items()
         for match in [KERNEL_NAME.search(name)] if match)
-
-
-def device_profile(fn, iters):
-    """torch.profiler over `iters` calls after one: (device kernel ms per
-    call by kernel name, total device ms per call, kernels per call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    count = 0
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.time_range.elapsed_us() / 1e3)
-            count += 1
-    if not by_name:
-        raise AssertionError("torch.profiler recorded no device kernels")
-    by_name = {k: v / iters for k, v in by_name.items()}
-    return by_name, sum(by_name.values()), count / iters
 
 
 def reset_soft_launch_counts():
@@ -313,6 +277,8 @@ def fit_phase(dev, card):
     import torch
 
     from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.microbench.common import (
+        device_profile)
     from pytorch_mesh_renderer_tpu_torch.models import (shapes,
                                                         soft_mesh_renderer)
     from pytorch_mesh_renderer_tpu_torch.ops import losses, mesh
@@ -484,6 +450,8 @@ def soft_phases(dev, card, teapot):
     import torch
 
     from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.microbench.common import (
+        device_profile)
     from pytorch_mesh_renderer_tpu_torch.models import soft_mesh_renderer
     from pytorch_mesh_renderer_tpu_torch.ops import mesh
     from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
@@ -786,7 +754,6 @@ def microbench_phase(dev, card):
     from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
     from pytorch_mesh_renderer_tpu_torch.microbench import (
         patch_scatter as ps)
-    from pytorch_mesh_renderer_tpu_torch.utils import scenes
 
     counters = ((me.LAUNCHES, "mxu_edge_"), (mf.LAUNCHES, "mxu_full_"),
                 (ps.LAUNCHES, ""))
@@ -800,10 +767,11 @@ def microbench_phase(dev, card):
     log("microbench", "mxu_edge " + json.dumps(edge))
     full = mf.run(visits, chunk, 30, dev.type)
     log("microbench", "mxu_full " + json.dumps(full))
+    # config -> (the JSON dict, the instance table its stage B evaluated)
     patch_runs = {config: ps.run(config, TEAPOT_BATCH, 20, 3, 32, "16x8", 4,
                                  dev.type)
                   for config in ("headline", "stress")}
-    for config, result in patch_runs.items():
+    for config, (result, _) in patch_runs.items():
         log("microbench", f"patch_scatter {config} " + json.dumps(result))
     torch.cuda.synchronize()
     launches = {prefix + key: n for counts, prefix in counters
@@ -812,7 +780,7 @@ def microbench_phase(dev, card):
         raise AssertionError(f"microbench: launches {launches}")
     if not full["covered_px"] > 0:
         raise AssertionError("mxu_full: no pixel covered")
-    for config, result in patch_runs.items():
+    for config, (result, _) in patch_runs.items():
         if not (result["id_mismatch_px"] == 0
                 and result["scatter_id_mismatch_px"] == 0
                 and result["bc_max_err"] <= KERNEL_ATOL
@@ -886,51 +854,56 @@ def microbench_phase(dev, card):
     data, coeff = mf.make_inputs(visits, chunk, dev)
     exact("mxu_full_prod", mf.launch_prod(data, visits, chunk),
           mf.zbuffer_prod_torch(data))
-    n_pairs, n_inside = mf.pair_counts(data)
+    # Both variants compute one function: their bounds count the pairs a
+    # cull must keep (each triangle's box of covered pixels), not all
+    # visits * C * 2048, and the pairs inside a triangle.
+    n_boxed, n_inside = mf.pair_counts(data)
     outputs = 5 * common.N_PIX * 4
     timed("mxu_full_prod", lambda: mf.launch_prod(data, visits, chunk),
           lambda: mf.zbuffer_prod_torch(data))
     bounds["mxu_full_prod"] = bound_ms(
         data.numel() * 4 + outputs,
-        n_pairs * (mf.EDGE_OPS + mf.INSIDE_OPS)
+        n_boxed * (mf.EDGE_OPS + mf.INSIDE_OPS)
         + n_inside * (mf.DEPTH_OPS + mf.TAIL_OPS))
     tc_kernel = mf.launch_tc(coeff, visits, chunk)
-    tc_plain = mf.zbuffer_tc_torch(coeff, visits, chunk)
+    tc_pairs = mf.tc_pairs(coeff, visits, chunk)
     torch.cuda.synchronize()
-    id_diff, z_gap, w_gap = mf.check_tc(tc_kernel, tc_plain)
+    id_diff, z_gap, w_gap = mf.check_tc(tc_kernel, tc_pairs)
     errors["mxu_full_tc"] = max(z_gap, w_gap)
     rel_errors["mxu_full_tc"] = max(z_gap, w_gap / max(
-        float(w.abs().max()) for w in tc_plain[2:]))
+        float(e.abs().max()) for e in tc_pairs[:3]))
+    del tc_pairs
     timed("mxu_full_tc", lambda: mf.launch_tc(coeff, visits, chunk),
           lambda: mf.zbuffer_tc_torch(coeff, visits, chunk))
+    # Five functions of K = 8 per boxed pair, three products for 3xTF32.
     bounds["mxu_full_tc"] = bound_ms(
         coeff.numel() * 4 + outputs,
-        n_pairs * mf.INSIDE_OPS + n_inside * mf.TAIL_OPS,
-        3 * 2 * coeff.shape[0] * 8 * common.N_PIX, PEAK_TF32_PER_S)
-    log("microbench", f"mxu_full kernels vs plain: prod bit for bit over "
-        f"{n_pairs} pairs ({n_inside} inside); tc ids differ at {id_diff} "
-        f"pixels, z gap {z_gap:.3g}, edge values {w_gap:.3g} (gate "
-        f"{mf.Z_TOL})")
+        n_boxed * mf.INSIDE_OPS + n_inside * mf.TAIL_OPS,
+        3 * 2 * 5 * 8 * n_boxed, PEAK_TF32_PER_S)
+    log("microbench", f"mxu_full kernels vs plain: prod bit for bit; tc ids "
+        f"differ at {id_diff} pixels (each between depths within "
+        f"{mf.Z_TOL}), z gap {z_gap:.3g}, edge values {w_gap:.3g} (gate "
+        f"{mf.Z_TOL}); {n_boxed} boxed pairs of "
+        f"{visits * chunk * common.N_PIX}, {n_inside} inside")
 
     name = "patch_eval"
     errors[name] = rel_errors[name] = 0.0
     eval_ms, eval_plain_ms, eval_bounds = [], [], []
-    for config, result in patch_runs.items():
-        size, sphere = ps.CONFIGS[config]
-        scene = scenes.build_scene(TEAPOT_BATCH, dev, sphere)
-        rows, bbox = ps.pack(scenes.clip_vertices(scene, size),
-                             scene["triangles"])
-        table = ps.plan(rows, bbox, size, patch, 32, 4)[0]
+    for config, (result, table) in patch_runs.items():
+        size = ps.CONFIGS[config][0]
         exact(name, ps.launch_patch_eval(table, size, patch),
               ps.patch_eval_torch(table, size, patch))
         timed(name, lambda: ps.launch_patch_eval(table, size, patch),
               lambda: ps.patch_eval_torch(table, size, patch))
         eval_ms.append(ms[name])
         eval_plain_ms.append(plain_ms[name])
-        lanes = table.shape[0] * table.shape[1] * ps.LANES
+        # The live instances' rows and outputs: a dead slot's outputs are
+        # constants (z = 2, zeros) that the merges need not read, since
+        # each instance's triangle id says it is dead.
+        live = result["instances_live"]
         eval_bounds.append(bound_ms(
-            table.numel() * 4 + 4 * lanes * 4,
-            result["instances_live"] * ps.LANES * ps.OPS_PER_LANE))
+            live * ps.TABLE_COLS * 4 + 4 * live * ps.LANES * 4,
+            live * ps.LANES * ps.OPS_PER_LANE))
         log("microbench", f"{card} | patch_eval {config}: bit for bit; "
             f"{table.shape[1]} instances per image ({result['instances_live']}"
             f" live in the batch): device {ms[name]:.4f} ms, plain "
@@ -960,6 +933,8 @@ def main():
 
     sys.path.insert(0, REPO)
     from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.microbench.common import (
+        device_profile)
     from pytorch_mesh_renderer_tpu_torch.models import mesh_renderer
     from pytorch_mesh_renderer_tpu_torch.ops import camera
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops

@@ -119,11 +119,14 @@ def launch(entry: str, device: torch.device, *args) -> None:
     kernels.check_cuda_error(lib, error, f"{entry} launch")
 
 
-def wall_ms(fn, device, iters, windows=3):
+def wall_ms(fn, device, iters, windows=5, warmup=3):
     """Median over `windows` of the mean time of `iters` back-to-back calls
-    after one call: CUDA events on a card (so the host's enqueueing counts
-    when it is the slower), the host clock on the CPU."""
-    fn()
+    after `warmup` calls: CUDA events on a card (so the host's enqueueing
+    counts when it is the slower), the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     per_call = []
     for _ in range(windows):
         if device.type == "cuda":
@@ -143,22 +146,11 @@ def wall_ms(fn, device, iters, windows=3):
     return statistics.median(per_call)
 
 
-def times_us(name, fn, device, iters):
-    """A variant's times per call in µs, as the JSON lines key them:
-    `<name>_us`, device_ms; on a card also `<name>_call_us`, wall_ms."""
-    times = {name + "_us": device_ms(fn, device, iters) * 1e3}
-    if device.type == "cuda":
-        times[name + "_call_us"] = wall_ms(fn, device, iters) * 1e3
-    return times
-
-
-def device_ms(fn, device, iters):
-    """Time per call on the device: the sum of the CUDA kernels'
-    durations under torch.profiler over `iters` calls after one, divided
-    by `iters` (no host enqueueing, no gaps). On the CPU, the host clock
-    (wall_ms)."""
-    if device.type != "cuda":
-        return wall_ms(fn, device, iters, windows=1)
+def device_profile(fn, iters):
+    """torch.profiler over `iters` calls of `fn` on the card after one:
+    (device ms per call by kernel name, total device ms per call, kernels
+    per call), without host enqueueing or gaps. Raises if the profiler
+    recorded no device kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -168,8 +160,33 @@ def device_ms(fn, device, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(event.time_range.elapsed_us() for event in prof.events()
-                   if event.device_type == torch.autograd.DeviceType.CUDA)
-    if not total_us:
+    by_name = {}
+    count = 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.time_range.elapsed_us() / 1e3)
+            count += 1
+    if not by_name:
         raise RuntimeError("torch.profiler recorded no device kernels")
-    return total_us / 1e3 / iters
+    by_name = {k: v / iters for k, v in by_name.items()}
+    return by_name, sum(by_name.values()), count / iters
+
+
+def device_ms(fn, device, iters):
+    """Time per call on the device: device_profile's total on a card, the
+    host clock (wall_ms, one window after one call) on the CPU."""
+    if device.type != "cuda":
+        return wall_ms(fn, device, iters, windows=1, warmup=1)
+    return device_profile(fn, iters)[1]
+
+
+def times_us(name, fn, device, iters):
+    """A variant's times per call in µs, as the JSON lines key them:
+    `<name>_us`, device_ms; on a card also `<name>_call_us`, wall_ms over
+    three windows after one call."""
+    times = {name + "_us": device_ms(fn, device, iters) * 1e3}
+    if device.type == "cuda":
+        times[name + "_call_us"] = wall_ms(fn, device, iters, windows=3,
+                                           warmup=1) * 1e3
+    return times

@@ -120,9 +120,10 @@ def zbuffer_prod_torch(data):
                  for t in _winner(e0, e1, e2, z, valid))
 
 
-def zbuffer_tc_torch(coeff, visits, chunk):
-    """Plain version of the tc kernel: (z, id i32, we0, we1, we2), each
-    [1, 2048], from the [visits*5C, 8] contraction rows."""
+def tc_pairs(coeff, visits, chunk):
+    """The tc kernel's per-pair values as its plain version computes them:
+    (e0, e1, e2, z, valid), each [visits*C, 2048], from the [visits*5C, 8]
+    contraction rows."""
     px, py = common.tile_pixel_coords(coeff.device)
     pix = torch.stack([px, py, torch.ones_like(px)])  # [3, N]
     a_hi, a_lo = common.tf32_split(coeff.view(visits, 5 * chunk, 8)[..., :3])
@@ -133,37 +134,72 @@ def zbuffer_tc_torch(coeff, visits, chunk):
         for k in range(5))
     z = num / torch.where(den != 0.0, den, 1.0)
     valid = pixel_is_inside(e0, e1, e2) & (z >= -1.0) & (z <= 1.0)
+    return e0, e1, e2, z, valid
+
+
+def zbuffer_tc_torch(coeff, visits, chunk):
+    """Plain version of the tc kernel: (z, id i32, we0, we1, we2), each
+    [1, 2048], from the [visits*5C, 8] contraction rows."""
     return tuple(t.view(1, common.N_PIX)
-                 for t in _winner(e0, e1, e2, z, valid))
+                 for t in _winner(*tc_pairs(coeff, visits, chunk)))
 
 
-def check_tc(kernel, plain):
-    """Hold the tc kernel's (z, id, we0, we1, we2) against its plain
-    version's: where the ids agree, z within Z_TOL and the edge values
-    within Z_TOL of the plain's max |value|; where they differ, the two
-    best depths within Z_TOL. Returns (pixels whose ids differ, max |z
-    difference|, max |edge value difference| where the ids agree); raises
-    AssertionError otherwise."""
+def check_tc(kernel, pairs):
+    """Hold a tc z-buffer (z, id, we0, we1, we2) against the plain
+    version's pair values `pairs` (tc_pairs). At every pixel the z must lie
+    within Z_TOL of the plain best z, and the edge values must lie within
+    Z_TOL of the plain max |value| of the plain values of the pair it names.
+    Where its id differs from the plain winner's, that pair must be valid in
+    the plain version with a z within Z_TOL of the plain best: a winner may
+    move only between two depths that lie within Z_TOL. Returns (pixels
+    whose ids differ, max |z difference|, max |edge value difference|);
+    raises AssertionError otherwise."""
+    e0, e1, e2, z, valid = pairs
+    z_p, id_p, *w_p = (t.reshape(-1) for t in _winner(*pairs))
     z_k, id_k, *w_k = (t.reshape(-1) for t in kernel)
-    z_p, id_p, *w_p = (t.reshape(-1) for t in plain)
-    same = id_k == id_p
-    z_gap = (z_k - z_p).abs()
-    w_gap = max(float(torch.where(same, (a - b).abs(), 0.0).max())
-                for a, b in zip(w_k, w_p))
-    w_scale = max(float(b.abs().max()) for b in w_p)
-    if not (float(z_gap.max()) <= Z_TOL and w_gap <= Z_TOL * w_scale):
+    picked = (id_k >= 0) & (id_k < z.shape[0])
+    row = torch.where(picked, id_k, 0).long()[None]
+    picked = picked & valid.gather(0, row)[0]
+    near = picked & ((z.gather(0, row)[0] - z_p).abs() <= Z_TOL)
+    moved = id_k != id_p
+    if bool((moved & ~near).any()):
+        bad = int((moved & ~near).sum())
         raise AssertionError(
-            f"tc kernel vs plain: z gap {float(z_gap.max())} (ids differ at "
-            f"{int((~same).sum())} pixels), edge values {w_gap} of "
-            f"{w_scale}; tolerance {Z_TOL}")
-    return int((~same).sum()), float(z_gap.max()), w_gap
+            f"tc vs plain: the id differs at {int(moved.sum())} pixels, at "
+            f"{bad} of them naming no valid pair within {Z_TOL} of the plain"
+            f" best z")
+    z_gap = float((z_k - z_p).abs().max())
+    w_gap = max(float((w - torch.where(picked, e.gather(0, row)[0],
+                                       0.0)).abs().max())
+                for w, e in zip(w_k, (e0, e1, e2)))
+    w_scale = max(float(w.abs().max()) for w in w_p)
+    if not (z_gap <= Z_TOL and w_gap <= Z_TOL * w_scale):
+        raise AssertionError(
+            f"tc vs plain: z gap {z_gap}, edge values {w_gap} of {w_scale};"
+            f" tolerance {Z_TOL}")
+    return int(moved.sum()), z_gap, w_gap
 
 
 def pair_counts(data):
-    """(pairs, inside pairs) of the table: what a bound counts."""
+    """(pairs a cull must keep, pairs inside a live triangle) of the [T, 16]
+    rows: what a bound counts. A cull must keep, per triangle, the pixels of
+    the tile in the bounding box of the pixel centres the triangle covers
+    (K1's and K3's bounds count the pairs in the triangles' bboxes in the
+    same way); every other pair can be skipped unseen, by prod and tc
+    alike."""
     px, py = common.tile_pixel_coords(data.device)
-    e = common.affine_values(data, px, py)[:3]
-    return data.shape[0] * common.N_PIX, int(pixel_is_inside(*e).sum())
+    inside = pixel_is_inside(*common.affine_values(data, px, py)[:3])
+    covers = (inside & (data[:, 15, None] > 0.0)).view(
+        -1, common.TILE_H, common.TILE_W)
+
+    def extent(hit):  # [T, L] -> span of the hits along L
+        index = torch.arange(hit.shape[1], device=hit.device)
+        lo = torch.where(hit, index, hit.shape[1]).amin(1)
+        hi = torch.where(hit, index, -1).amax(1)
+        return (hi - lo + 1).clamp(min=0)
+
+    boxed = extent(covers.any(2)) * extent(covers.any(1))
+    return int(boxed.sum()), int(covers.sum())
 
 
 def _outputs(device, shape):

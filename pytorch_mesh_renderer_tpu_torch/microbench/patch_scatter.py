@@ -305,7 +305,8 @@ def production(clip, triangles, size):
 def run(config="headline", batch=4, iters=20, windows=3, cap=32,
         patch="16x8", budget_factor=4, device="cuda"):
     """Build the scene, check both merges against the production forward
-    and time every stage; returns the JSON dict."""
+    and time every stage; returns (the JSON dict, the instance table that
+    stage B evaluated)."""
     patch = parse_patch(patch)
     dev = common.resolve_device(device)
     size, sphere = CONFIGS[config]
@@ -328,7 +329,7 @@ def run(config="headline", batch=4, iters=20, windows=3, cap=32,
     ids_s, _, _ = merge_scatter(*kouts, table, inst_tri, size, patch)
 
     def timed(fn):
-        return common.wall_ms(fn, dev, iters, windows)
+        return common.wall_ms(fn, dev, iters, windows, warmup=1)
 
     t_prod = timed(lambda: production(clip, tris, size))
     t_patch = timed(patch_forward)
@@ -355,7 +356,7 @@ def run(config="headline", batch=4, iters=20, windows=3, cap=32,
         "scatter_id_mismatch_px": int((ids_s != ids_r).sum()),
         "patch_vs_prod": t_prod / t_patch,
         "device": common.device_name(dev),
-    }
+    }, table
 
 
 def main(argv=None):
@@ -377,7 +378,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     print(json.dumps(run(args.config, args.batch, args.iters, args.windows,
                          args.cap, args.patch, args.budget_factor,
-                         args.device)))
+                         args.device)[0]))
 
 
 if __name__ == "__main__":

@@ -483,7 +483,7 @@ def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
         assert torch.equal(k, p)
     assert int((prod[1] >= 0).sum()) > 0
     mf.check_tc(mf.launch_tc(coeff, visits, chunk),
-                mf.zbuffer_tc_torch(coeff, visits, chunk))
+                mf.tc_pairs(coeff, visits, chunk))
     assert mf.LAUNCHES == {name: n + 1 for name, n in before.items()}
     with pytest.raises(ValueError, match="multiple of 8"):
         mf.launch_tc(coeff[:visits * 5 * 4], visits, 4)
@@ -507,7 +507,9 @@ def test_patch_eval_kernel_matches_plain_version(dev, size):
 
 @pytest.mark.parametrize("config", ["headline", "stress"])
 def test_patch_scatter_merges_equal_the_production_forward(dev, config):
-    result = ps.run(config, batch=1, iters=1, windows=1, device="cuda")
+    result, table = ps.run(config, batch=1, iters=1, windows=1,
+                           device="cuda")
+    assert table.is_cuda and table.shape[-1] == ps.TABLE_COLS
     assert result["capped_or_overflowed_triangles"] == 0
     assert result["id_mismatch_px"] == result["scatter_id_mismatch_px"] == 0
     assert result["bc_max_err"] <= 1e-6 and result["z_max_err"] <= 1e-6
