@@ -38,7 +38,10 @@ and runs these phases, printing one line or more per phase:
 The soft (SoftRas) renderer's phases follow:
 
   8. soft-kernel — K5-K8 vs their plain versions: the 16x16 two-triangle
-               scene, the cube, random scenes with 1 and 3 lights, two row
+               scene, the cube, random scenes with 1 and 3 lights, K8's
+               edge scenes (65 and 0 lights, a quad of two triangles
+               filling a 256x256 frame, a batch whose second image holds no
+               valid pair, whose gradients must be exactly 0), two row
                strips against the full image, the zero-triangle mesh, the
                256x256 batch-4 teapot and a sphere of 49,298 triangles at
                64x64 in one launch per kernel. Forward: rgb within 2e-5 abs
@@ -63,7 +66,12 @@ The soft (SoftRas) renderer's phases follow:
  12. soft-times — CUDA-event medians of each soft kernel vs its plain
                version, the soft render, the soft steps, the silhouette
                step and the fit step, and device time by kernel from
-               torch.profiler.
+               torch.profiler. Then K8 alone (utils/soft_work.py): its
+               registers, spills, shared memory and CTAs per SM, the counts
+               of where its work falls on the teapot, and its launch and
+               device times at 256x256 and 128x128, at its compiled split
+               and at each split of a pixel block's triangles tried (4, 8,
+               16 CTAs).
 
 The design microbenchmarks of scripts/ (S1-S3), ported in
 pytorch_mesh_renderer_tpu_torch/microbench/, follow:
@@ -248,6 +256,10 @@ KERNEL_NAME = re.compile(r"(rasterize|soft)\w*_kernel")
 def kernel_device_ms(by_name):
     """'name ms, ...' of the repository's kernels in a device_profile's
     breakdown."""
+    from pytorch_mesh_renderer_tpu_torch.microbench.common import EVENTS_ONLY
+
+    if EVENTS_ONLY in by_name:
+        return EVENTS_ONLY
     return ", ".join(
         f"{match.group(0)} {t:.4f} ms" for name, t in by_name.items()
         for match in [KERNEL_NAME.search(name)] if match)
@@ -453,8 +465,8 @@ def soft_phases(dev, card, teapot):
     from pytorch_mesh_renderer_tpu_torch.microbench.common import (
         device_profile)
     from pytorch_mesh_renderer_tpu_torch.models import soft_mesh_renderer
-    from pytorch_mesh_renderer_tpu_torch.ops import mesh
     from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+    from pytorch_mesh_renderer_tpu_torch.utils import kernels, soft_work
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
 
     names = ("soft_sil_fwd", "soft_sil_bwd", "soft_fwd", "soft_bwd")
@@ -493,6 +505,14 @@ def soft_phases(dev, card, teapot):
 
     for name in test_utils.SOFT_SCENES:
         compare_soft(name, test_utils.soft_scene(name, dev))
+    for name in test_utils.SOFT_EDGE_SCENES:
+        k7, _, dtable, _ = compare_soft(name, test_utils.soft_scene(name,
+                                                                    dev))
+        if name == "empty_image" and not (
+                torch.equal(k7[0][1], torch.zeros_like(k7[0][1]))
+                and torch.equal(dtable[1], torch.zeros_like(dtable[1]))):
+            raise AssertionError("empty_image: the second image is not "
+                                 "background with a zero table gradient")
 
     # Row strips: forward rows equal the full image's; the strips' table
     # gradients sum to the full image's.
@@ -531,17 +551,10 @@ def soft_phases(dev, card, teapot):
     # The teapot: bench.py:290-311's soft scene at the renderer's defaults.
     soft_tris = teapot["triangles"].flip(1).contiguous()  # CCW
     soft_intensities = teapot["intensities"][..., 0].contiguous()
-    teapot_lights = torch.cat([teapot["lights"], soft_intensities[..., None]],
-                              -1).contiguous()
-    teapot_normals = mesh.compute_vertex_normals(teapot["vertices"],
-                                                 soft_tris)
     teapot_soft = test_utils.SoftScene(
-        sc.pack_triangle_data(test_utils.clip_from_eye(
-            teapot["vertices"], teapot["eye"], TEAPOT_SIZE, TEAPOT_SIZE),
-            soft_tris, teapot["vertices"], teapot_normals,
-            teapot["diffuse"], 0.01),
-        teapot_lights, sc.make_params(1e-5, 1e-4, 0.01, 0, dev),
-        TEAPOT_SIZE, TEAPOT_SIZE)
+        *soft_work.teapot_table(TEAPOT_SIZE, dev, TEAPOT_BATCH), TEAPOT_SIZE,
+        TEAPOT_SIZE)
+    teapot_lights = teapot_soft.lights
     compare_soft(f"teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}", teapot_soft)
 
     # Above the JAX package's per-pass cap of 49,152 triangles: one launch
@@ -724,6 +737,24 @@ def soft_phases(dev, card, teapot):
             f"+ mean(alpha^2) + backward to the vertices): "
             f"{step_ms[label]:.4f} ms, "
             f"{TEAPOT_BATCH * 1000.0 / step_ms[label]:.2f} renders/s")
+
+    # K8 alone: its build, where its work falls, and its times at the
+    # compiled split and at each split tried.
+    log("soft-times", f"{card} | soft_bwd_kernel: " + json.dumps(
+        soft_work.kernel_report(kernels.build().log)))
+    for size in (TEAPOT_SIZE, 128):
+        k8_scene = soft_work.teapot_table(size, dev, TEAPOT_BATCH)
+        counts = soft_work.pair_counts(k8_scene[0], size, size,
+                                       float(k8_scene[2][2]))
+        times = []
+        for split in (0, 4, 8, 16):
+            launch_ms, device_ms = soft_work.time_soft_bwd(*k8_scene, size,
+                                                           split)
+            times.append(f"split {split or 'compiled'}: launch "
+                         f"{launch_ms:.4f} ms, device {device_ms:.4f} ms")
+        log("soft-times", f"{card} | soft_bwd teapot {size}^2 batch "
+            f"{TEAPOT_BATCH}: counts {json.dumps(counts)}; "
+            + "; ".join(times))
 
     # Device time by kernel (torch.profiler) and the device's idle share.
     for label, fn, wall_ms in (

@@ -23,17 +23,39 @@
 // gradients), the light gradient [B, L, 4] and (dsigma, dgamma) per batch
 // image [B, 2].
 //
-// The reduction from many pixels to many triangles: the blocks of the
-// forward's tiling each stage the triangles that may touch them
-// (soft_common.cuh). For a staged triangle every thread computes its
-// pixel's contribution (zero for an invalid pair); a warp in which no
-// lane is valid skips the triangle (one ballot). Otherwise each column is
-// summed over the warp with five xor shuffles and lane 0 adds the non-zero
-// sums into the table in device memory with atomicAdd. Light and
-// (sigma, gamma) gradients are summed per block in shared memory and added
-// to device memory once per block at the end. The table has no size cap.
+// What bounds it: the busy pixel blocks' pairs. On the 256x256 batch-4
+// teapot 208 of the 1,024 pixel blocks hold a valid pair and the busiest
+// stages 191 triangles; one CTA per block ran them in sequence on its 8
+// warps, each (warp, triangle) item a chain of ~700 dependent fp32
+// operations, 58 warp sums and 48 atomics issued by one lane. Each pair's
+// chain is latency-bound, so what counts is how many warps run chains at
+// once and how long the longest sequence is.
+//
+// The work split. The grid is (ceil(W / 16), ceil(H / 16), B x kSplit):
+// CTA s of a pixel block stages only the table rows t = s (mod kSplit), so
+// neighbouring triangle ids land in different CTAs and a busy block's
+// triangles spread over kSplit CTAs whatever the mesh's index order; all
+// 256 threads cull, 256 rows a pass. A CTA that stages a row reads the
+// block's per-pixel residuals (rgb, 1 - alpha, the cotangent, m and
+// 1 / (sum_w + bg)) into shared memory once; one that stages none leaves.
+// Its work is every (staged triangle, row pair the triangle's bbox rows
+// touch) item, in triangle order, cut into 8 equal runs, one per warp; a
+// lane takes one pixel of the 16x2 pair, and a pair in which no lane is
+// valid is skipped (one ballot). A lane adds its pairs' 48 column
+// gradients into registers; at the end of a triangle's items in the run
+// one butterfly reduce-scatter over the warp (62 shuffles) leaves columns
+// 2l and 2l + 1 with lane l, which adds them into the table in device
+// memory: 48 atomics from 24 lanes at once. Light gradients are summed
+// over the warp per pair (4 L values) into the CTA's shared accumulators
+// (lights past kSharedLights straight into device memory, so any L is
+// taken); dsigma and dgamma stay in each lane's registers until the CTA's
+// end. Each CTA adds its non-zero light and (sigma, gamma) sums to device
+// memory once. The table has no size cap. Two CTAs share an SM (the
+// launch bounds cap registers at 128; ptxas spills the rest to L1): more
+// chains in flight paid more than the spills cost on the H100 (PERF.md).
 // Float atomics land in an order that changes from run to run, so the
-// gradients' last bits do too.
+// gradients' last bits do too; every per-pair value keeps the plain
+// version's operation order (--fmad=false).
 
 #include "soft_common.cuh"
 
@@ -41,6 +63,24 @@ namespace {
 
 // Table columns with a gradient: 0-17 and 26-55.
 constexpr int kNumGradCols = 48;
+// The butterfly halves 64 padded columns five times: lane l keeps 2l, 2l+1.
+constexpr int kPaddedCols = 64;
+// CTAs per pixel block; each stages the rows of one residue mod kSplit.
+// Chosen from the device times at 4, 8 and 16 on the H100 (PERF.md).
+constexpr int kSplit = 8;
+constexpr int kWarps = kSoftThreads / 32;
+// A warp's item covers 16x2 pixels: one row pair of the block.
+constexpr int kRowPairs = kSoftBlockY / 2;
+static_assert(kSoftBlockX == 16 && kSoftBlockY % 2 == 0,
+              "a warp is one 16x2 row pair");
+// Lights whose gradients a CTA sums in shared memory; later ones go to
+// device memory directly.
+constexpr int kSharedLights = 256;
+// Rows a CTA tests per pass: all 256 threads cull, so a CTA's share of a
+// 2,464-row table (308 rows at kSplit 8) takes 2 passes, not 3. The slab
+// of kept rows is dynamic shared memory: 60,416 bytes.
+constexpr int kStageRows = kSoftThreads;
+constexpr int kSlabBytes = kStageRows * kCols * sizeof(float);
 
 __device__ __forceinline__ constexpr int grad_col(int i) {
   return i < 18 ? i : i + 8;
@@ -50,7 +90,24 @@ __device__ __forceinline__ float sign_of(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
-__global__ void __launch_bounds__(kSoftThreads) soft_bwd_kernel(
+// Reduce-scatter of t[0, 2 kHalf) over the warp: each step keeps half of
+// the columns (the upper half when the lane's bit kHalf / 2 is set), adds
+// the partner lane's copy of that half and sends it the other. From
+// kHalf = 32, lane l ends with the warp's totals of columns 2l and 2l + 1
+// in t[0] and t[1].
+template <int kHalf>
+__device__ __forceinline__ void reduce_scatter(float* t, int lane) {
+  const bool upper = (lane & (kHalf / 2)) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = upper ? t[i] : t[i + kHalf];
+    const float keep = upper ? t[i + kHalf] : t[i];
+    t[i] = keep + __shfl_xor_sync(kFullMask, send, kHalf / 2);
+  }
+  if constexpr (kHalf > 2) reduce_scatter<kHalf / 2>(t, lane);
+}
+
+__global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
     const float* __restrict__ table,    // [B, T, 59]
     const float4* __restrict__ lights,  // [B, L] (x, y, z, intensity)
     const float* __restrict__ params,   // sigma, gamma, blur^2, row offset
@@ -61,216 +118,332 @@ __global__ void __launch_bounds__(kSoftThreads) soft_bwd_kernel(
     float* __restrict__ dtable,         // [B, T, 59]
     float* __restrict__ dlights,        // [B, L, 4]
     float* __restrict__ dparams,        // [B, 2]
-    int num_tris, int num_lights, int width, int height, int full_height) {
-  __shared__ float slab[kSlabRows * kCols];
-  __shared__ int kept_ids[kSlabRows];
-  __shared__ int warp_kept[kSlabWarps];
-  __shared__ float4 s_lights[kMaxLights];
-  __shared__ float s_acc[4 * kMaxLights + 2];  // dlights, dsigma, dgamma
+    int num_tris, int num_lights, int width, int height, int full_height,
+    int split) {
+  extern __shared__ float slab[];  // kStageRows x kCols
+  __shared__ int kept_ids[kStageRows];
+  __shared__ int warp_kept[kStageRows / 32];
+  // Per-pixel residuals of the block: rgb and sil = 1 - alpha; the
+  // cotangent; m; 1 / (sum_w + bg). Neutral outside the image.
+  __shared__ float4 s_rgbs[kSoftThreads];
+  __shared__ float4 s_d[kSoftThreads];
+  __shared__ float s_m[kSoftThreads];
+  __shared__ float s_inv[kSoftThreads];
+  __shared__ float s_py[kSoftBlockY];
+  __shared__ int s_start[kStageRows];  // each staged row's first item
+  __shared__ int s_first[kStageRows];  // and its first row pair
+  __shared__ int s_warp_items[kWarps];
+  __shared__ float s_acc[4 * kSharedLights + 2];  // dlights, dsigma, dgamma
 
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / split;
+  const int part = blockIdx.z - b * split;
   const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
   const int lane = tid % 32;
-  const int x = blockIdx.x * kSoftBlockX + threadIdx.x;
-  const int y = blockIdx.y * kSoftBlockY + threadIdx.y;
-  const bool in_image = x < width && y < height;
+  const int warp = tid / 32;
+  const int x0 = blockIdx.x * kSoftBlockX;
+  const int y0 = blockIdx.y * kSoftBlockY;
   const SoftParams p = load_params(params);
-  const int n_acc = 4 * num_lights + 2;
-  for (int i = tid; i < n_acc; i += kSoftThreads) s_acc[i] = 0.0f;
-  for (int l = tid; l < num_lights; l += kSoftThreads) {
-    s_lights[l] = lights[static_cast<size_t>(b) * num_lights + l];
-  }
-  const float px = pixel_x(x, width);
-  const float py = pixel_y(y, p.row_off, full_height);
+  const int n_shared = min(num_lights, kSharedLights);
+  const int n_acc = 4 * n_shared + 2;
   const BlockExtent extent = block_extent(width, height, p.row_off,
                                           full_height);
   const float* rows_b = table + static_cast<size_t>(b) * num_tris * kCols;
   float* dtab_b = dtable + static_cast<size_t>(b) * num_tris * kCols;
+  const float4* lights_b = lights + static_cast<size_t>(b) * num_lights;
+  float* dlights_b = dlights + static_cast<size_t>(b) * 4 * num_lights;
 
-  // Residuals and cotangents of this pixel; neutral outside the image.
-  float sil = 1.0f, inv_total = 0.0f, m = 0.0f;
-  float4 rgb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (in_image) {
-    const size_t pixel =
-        (static_cast<size_t>(b) * height + y) * static_cast<size_t>(width) +
-        x;
-    rgb = rgba[pixel];
-    d = d_rgba[pixel];
-    m = m_in[pixel];
-    sil = 1.0f - rgb.w;
-    const float bg = fmaxf(expf(kEps / p.gamma - m), kEps);
-    inv_total = 1.0f / (sumw_in[pixel] + bg);
-  }
+  // This lane's pixel column, and which row of a pair it takes.
+  const int x = x0 + lane % kSoftBlockX;
+  const float px = pixel_x(x, width);
+  const int pair_row = lane / kSoftBlockX;
+  const int rows_here = min(kSoftBlockY, height - y0);
 
-  for (int t0 = 0; t0 < num_tris; t0 += kSlabRows) {
-    const int n_kept = stage_rows(rows_b, t0, min(kSlabRows, num_tris - t0),
-                                  extent, slab, kept_ids, warp_kept);
-    for (int k = 0; k < n_kept; ++k) {  // uniform over the block
-      const float* r = slab + k * kCols;
-      SoftGeometry g;
-      g.valid = false;
-      if (in_image) g = soft_geometry(r, px, py, p.sigma, p.sq_blur);
-      const bool valid = g.valid;
-      if (!__any_sync(kFullMask, valid)) continue;  // uniform over the warp
-
-      float v[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) v[c] = 0.0f;
-      float dsig = 0.0f, dgam = 0.0f, dsq = 0.0f, dlight_sum = 0.0f;
-      float dcr = 0.0f, dcg = 0.0f, dcbl = 0.0f;
-      float dsb[3] = {0.0f, 0.0f, 0.0f};
-      SoftShade s = {};
-      if (valid) {
-        s = soft_shade(r, g, s_lights, num_lights);
-        const float shade_r = s.cr * s.light_sum;
-        const float shade_g = s.cg * s.light_sum;
-        const float shade_b = s.cb * s.light_sum;
-        const float E = expf(g.z / p.gamma - m);
-        const float W = g.coverage * E;
-        // rgb = sum(W * shade) / (sum_w + bg); m cancels, bg is constant.
-        const float common = (d.x * (shade_r - rgb.x) +
-                              d.y * (shade_g - rgb.y) +
-                              d.z * (shade_b - rgb.z)) *
-                             inv_total;
-        const float ds_r = d.x * W * inv_total;
-        const float ds_g = d.y * W * inv_total;
-        const float ds_b = d.z * W * inv_total;
-        // Coverage: the rgb term keeps sigmoid' = cov (1 - cov); the
-        // silhouette term's (1 - cov) cancels against prod_{j != c}.
-        dsq = (g.sgn / p.sigma) *
-              (d.w * sil * g.coverage +
-               common * E * g.cov_raw * (1.0f - g.cov_raw));
-        // Depth: dW/dl = W; z = 0.5 - z_ndc / 2; l = z / gamma.
-        const float dz_ndc = common * W / p.gamma * (-0.5f);
-        dsig = -dsq * g.sq_dist / p.sigma;
-        dgam = 2.0f * dz_ndc * g.z / p.gamma;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          dsb[c] = dz_ndc * r[15 + c];
-          v[15 + c] = dz_ndc * g.sb[c];
-        }
-        dcr = ds_r * s.light_sum;
-        dcg = ds_g * s.light_sum;
-        dcbl = ds_b * s.light_sum;
-        dlight_sum = ds_r * s.cr + ds_g * s.cg + ds_b * s.cb;
+  float dsig = 0.0f, dgam = 0.0f;  // this lane's sums over its pairs
+  bool residuals_staged = false;
+  for (int t0 = part; t0 < num_tris; t0 += kStageRows * split) {
+    const int n = min(kStageRows, (num_tris - t0 + split - 1) / split);
+    const int n_kept = stage_rows<kStageRows>(rows_b, t0, n, split, extent,
+                                              slab, kept_ids, warp_kept);
+    if (n_kept > 0 && !residuals_staged) {  // uniform over the block
+      for (int i = tid; i < n_acc; i += kSoftThreads) s_acc[i] = 0.0f;
+      if (tid < kSoftBlockY) {
+        s_py[tid] = pixel_y(y0 + tid, p.row_off, full_height);
       }
+      const int xr = x0 + tid % kSoftBlockX;
+      const int yr = y0 + tid / kSoftBlockX;
+      float4 rgbs = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+      float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float m = 0.0f, inv_total = 0.0f;
+      if (xr < width && yr < height) {
+        const size_t pixel = (static_cast<size_t>(b) * height + yr) *
+                                 static_cast<size_t>(width) + xr;
+        const float4 c = rgba[pixel];
+        rgbs = make_float4(c.x, c.y, c.z, 1.0f - c.w);
+        d = d_rgba[pixel];
+        m = m_in[pixel];
+        const float bg = fmaxf(expf(kEps / p.gamma - m), kEps);
+        inv_total = 1.0f / (sumw_in[pixel] + bg);
+      }
+      s_rgbs[tid] = rgbs;
+      s_d[tid] = d;
+      s_m[tid] = m;
+      s_inv[tid] = inv_total;
+      __syncthreads();
+      residuals_staged = true;
+    }
+    if (n_kept == 0) continue;  // uniform over the block
 
-      // Lights, uniform over the warp: each light's four gradients are
-      // summed over the warp into the block's shared accumulators.
-      float dp3x = 0.0f, dp3y = 0.0f, dp3z = 0.0f;
-      float dnx = 0.0f, dny = 0.0f, dnz = 0.0f;
-      for (int l = 0; l < num_lights; ++l) {
-        float ddx = 0.0f, ddy = 0.0f, ddz = 0.0f, dint = 0.0f;
-        if (valid) {
-          const float4 lt = s_lights[l];
-          const float dx = lt.x - s.p3x;
-          const float dy = lt.y - s.p3y;
-          const float dz = lt.z - s.p3z;
-          const float d_norm = sqrtf(dx * dx + dy * dy + dz * dz);
-          const float di = 1.0f / fmaxf(d_norm, 1e-12f);
-          const float ct = (dx * s.nx + dy * s.ny + dz * s.nz) * di;
-          const float ndl = fminf(fmaxf(ct, 0.0f), 1.0f);
-          const float dndl =
-              (ct > 0.0f && ct < 1.0f) ? dlight_sum * lt.w : 0.0f;
-          dint = dlight_sum * ndl;
-          ddx = dndl * (s.nx * di - ct * dx * di * di);
-          ddy = dndl * (s.ny * di - ct * dy * di * di);
-          ddz = dndl * (s.nz * di - ct * dz * di * di);
-          dnx += dndl * dx * di;
-          dny += dndl * dy * di;
-          dnz += dndl * dz * di;
-          dp3x -= ddx;
-          dp3y -= ddy;
-          dp3z -= ddz;
-        }
-        const float sx = warp_sum(ddx);
-        const float sy = warp_sum(ddy);
-        const float sz = warp_sum(ddz);
-        const float si = warp_sum(dint);
-        if (lane == 0) {
-          atomicAdd(&s_acc[4 * l + 0], sx);
-          atomicAdd(&s_acc[4 * l + 1], sy);
-          atomicAdd(&s_acc[4 * l + 2], sz);
-          atomicAdd(&s_acc[4 * l + 3], si);
+    // The CTA's work is every (staged triangle, row pair its bbox rows
+    // touch) item, in triangle order, cut into kWarps equal runs: a warp
+    // takes one run, so a large triangle's row pairs spread over warps and
+    // a CTA with few triangles keeps its warps busy. Thread k counts row
+    // k's pairs (a contiguous range: py falls as the row grows); a scan
+    // gives each row its first item.
+    int n_pairs = 0, first_pair = 0;
+    if (tid < n_kept) {
+      const float* r = slab + tid * kCols;
+      int last_pair = -1;
+      first_pair = kRowPairs;
+      for (int pair = 0; 2 * pair < rows_here; ++pair) {
+        const float py_top = s_py[2 * pair];
+        const float py_bottom = s_py[min(2 * pair + 1, rows_here - 1)];
+        if (py_top >= r[24] && py_bottom <= r[25]) {
+          first_pair = min(first_pair, pair);
+          last_pair = pair;
         }
       }
+      n_pairs = max(last_pair - first_pair + 1, 0);
+    }
+    int items_to = n_pairs;  // inclusive scan over the warp
+#pragma unroll
+    for (int offset = 1; offset < 32; offset <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, items_to, offset);
+      if (lane >= offset) items_to += v;
+    }
+    if (lane == 31) s_warp_items[warp] = items_to;
+    __syncthreads();
+    int n_items = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) s_start[tid] = n_items + items_to - n_pairs;
+      n_items += s_warp_items[w];
+    }
+    s_first[tid] = first_pair;
+    __syncthreads();
 
-      if (valid) {
-        // Normalize backward: u -> n.
-        const float ndot = dnx * s.nx + dny * s.ny + dnz * s.nz;
-        const float dux = (dnx - s.nx * ndot) * s.n_inv;
-        const float duy = (dny - s.ny * ndot) * s.n_inv;
-        const float duz = (dnz - s.nz * ndot) * s.n_inv;
-        // Attribute interpolation transposes (corner-major columns).
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float sbc = g.sb[c];
-          v[26 + 3 * c] = dp3x * sbc;
-          v[27 + 3 * c] = dp3y * sbc;
-          v[28 + 3 * c] = dp3z * sbc;
-          v[35 + 3 * c] = dux * sbc;
-          v[36 + 3 * c] = duy * sbc;
-          v[37 + 3 * c] = duz * sbc;
-          v[44 + 3 * c] = dcr * sbc;
-          v[45 + 3 * c] = dcg * sbc;
-          v[46 + 3 * c] = dcbl * sbc;
-          dsb[c] += dp3x * r[26 + 3 * c] + dp3y * r[27 + 3 * c] +
-                    dp3z * r[28 + 3 * c] + dux * r[35 + 3 * c] +
-                    duy * r[36 + 3 * c] + duz * r[37 + 3 * c] +
-                    dcr * r[44 + 3 * c] + dcg * r[45 + 3 * c] +
-                    dcbl * r[46 + 3 * c];
-        }
-        // L1-normalize backward: sb = ow / sum(|ow|).
-        const float sdot = dsb[0] * g.sb[0] + dsb[1] * g.sb[1] +
-                           dsb[2] * g.sb[2];
-        float dcb[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float dow = (dsb[c] - sdot * sign_of(g.ow[c])) * g.inv_denom;
-          dcb[c] = dow * r[53 + c];
-          v[53 + c] = dow * g.cb[c];  // d(1/w); the pack's chain gives dw
-        }
-        float dts[3] = {0.0f, 0.0f, 0.0f};
-        if (g.inside) {
-          // cb = the screen barycentrics, linear in (px, py, 1).
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            v[3 * c + 0] = dcb[c] * px;
-            v[3 * c + 1] = dcb[c] * py;
-            v[3 * c + 2] = dcb[c];
-          }
-        } else {
-          // cb from the picked edge's offset t.
-          dts[0] = g.pick == 0 ? dcb[1] - dcb[0] : 0.0f;
-          dts[1] = g.pick == 1 ? dcb[2] - dcb[1] : 0.0f;
-          dts[2] = g.pick == 2 ? dcb[0] - dcb[2] : 0.0f;
-        }
-        edge_gradients<true>(r, g, px, py, dsq, dts, v);
-      }
-
-      float* out = dtab_b + static_cast<size_t>(t0 + kept_ids[k]) * kCols;
-#pragma unroll
-      for (int i = 0; i < kNumGradCols; ++i) {
-        const int c = grad_col(i);
-        const float total = warp_sum(v[c]);
-        if (lane == 0 && total != 0.0f) atomicAdd(out + c, total);
-      }
-      const float sig_total = warp_sum(dsig);
-      const float gam_total = warp_sum(dgam);
-      if (lane == 0) {
-        atomicAdd(&s_acc[4 * num_lights + 0], sig_total);
-        atomicAdd(&s_acc[4 * num_lights + 1], gam_total);
+    const int i0 = n_items * warp / kWarps;
+    const int i1 = n_items * (warp + 1) / kWarps;
+    int k = 0;  // the row of item i0: the last whose first item <= i0
+    for (int lo = 1, hi = n_kept - 1; lo <= hi;) {
+      const int mid = (lo + hi) / 2;
+      if (s_start[mid] <= i0) {
+        k = mid;
+        lo = mid + 1;
+      } else {
+        hi = mid - 1;
       }
     }
+    float acc[kCols];  // this lane's column gradients of row k
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+    bool any_valid = false;  // uniform over the warp
+    for (int i = i0; i < i1; ++i) {  // uniform over the warp
+      const float* r = slab + k * kCols;
+      const int row0 = 2 * (s_first[k] + i - s_start[k]);
+      const int pix = row0 * kSoftBlockX + lane;
+      const float py = s_py[row0 + pair_row];
+      SoftGeometry g;
+      g.valid = false;
+      if (x < width && row0 + pair_row < rows_here) {
+        g = soft_geometry(r, px, py, p.sigma, p.sq_blur);
+      }
+      const bool valid = g.valid;
+      if (__any_sync(kFullMask, valid)) {
+        any_valid = true;
+
+        float dsq = 0.0f, dlight_sum = 0.0f;
+        float dcr = 0.0f, dcg = 0.0f, dcbl = 0.0f;
+        float dsb[3] = {0.0f, 0.0f, 0.0f};
+        SoftShade s = {};
+        if (valid) {
+          const float4 rgb = s_rgbs[pix];
+          const float4 d = s_d[pix];
+          const float m = s_m[pix];
+          const float inv_total = s_inv[pix];
+          s = soft_shade(r, g, lights_b, num_lights);
+          const float shade_r = s.cr * s.light_sum;
+          const float shade_g = s.cg * s.light_sum;
+          const float shade_b = s.cb * s.light_sum;
+          const float E = expf(g.z / p.gamma - m);
+          const float W = g.coverage * E;
+          // rgb = sum(W * shade) / (sum_w + bg); m cancels, bg is constant.
+          const float common = (d.x * (shade_r - rgb.x) +
+                                d.y * (shade_g - rgb.y) +
+                                d.z * (shade_b - rgb.z)) *
+                               inv_total;
+          const float ds_r = d.x * W * inv_total;
+          const float ds_g = d.y * W * inv_total;
+          const float ds_b = d.z * W * inv_total;
+          // Coverage: the rgb term keeps sigmoid' = cov (1 - cov); the
+          // silhouette term's (1 - cov) cancels against prod_{j != c}.
+          dsq = (g.sgn / p.sigma) *
+                (d.w * rgb.w * g.coverage +
+                 common * E * g.cov_raw * (1.0f - g.cov_raw));
+          // Depth: dW/dl = W; z = 0.5 - z_ndc / 2; l = z / gamma.
+          const float dz_ndc = common * W / p.gamma * (-0.5f);
+          dsig += -dsq * g.sq_dist / p.sigma;
+          dgam += 2.0f * dz_ndc * g.z / p.gamma;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            dsb[c] = dz_ndc * r[15 + c];
+            acc[15 + c] += dz_ndc * g.sb[c];
+          }
+          dcr = ds_r * s.light_sum;
+          dcg = ds_g * s.light_sum;
+          dcbl = ds_b * s.light_sum;
+          dlight_sum = ds_r * s.cr + ds_g * s.cg + ds_b * s.cb;
+        }
+
+        // Lights, uniform over the warp: each light's four gradients are
+        // summed over the warp into the CTA's accumulators.
+        float dp3x = 0.0f, dp3y = 0.0f, dp3z = 0.0f;
+        float dnx = 0.0f, dny = 0.0f, dnz = 0.0f;
+        for (int l = 0; l < num_lights; ++l) {
+          float ddx = 0.0f, ddy = 0.0f, ddz = 0.0f, dint = 0.0f;
+          if (valid) {
+            const float4 lt = __ldg(lights_b + l);
+            const float dx = lt.x - s.p3x;
+            const float dy = lt.y - s.p3y;
+            const float dz = lt.z - s.p3z;
+            const float d_norm = sqrtf(dx * dx + dy * dy + dz * dz);
+            const float di = 1.0f / fmaxf(d_norm, 1e-12f);
+            const float ct = (dx * s.nx + dy * s.ny + dz * s.nz) * di;
+            const float ndl = fminf(fmaxf(ct, 0.0f), 1.0f);
+            const float dndl =
+                (ct > 0.0f && ct < 1.0f) ? dlight_sum * lt.w : 0.0f;
+            dint = dlight_sum * ndl;
+            ddx = dndl * (s.nx * di - ct * dx * di * di);
+            ddy = dndl * (s.ny * di - ct * dy * di * di);
+            ddz = dndl * (s.nz * di - ct * dz * di * di);
+            dnx += dndl * dx * di;
+            dny += dndl * dy * di;
+            dnz += dndl * dz * di;
+            dp3x -= ddx;
+            dp3y -= ddy;
+            dp3z -= ddz;
+          }
+          const float sx = warp_sum(ddx);
+          const float sy = warp_sum(ddy);
+          const float sz = warp_sum(ddz);
+          const float si = warp_sum(dint);
+          if (lane == 0) {
+            float* dst =
+                l < kSharedLights ? s_acc + 4 * l : dlights_b + 4 * l;
+            atomicAdd(dst + 0, sx);
+            atomicAdd(dst + 1, sy);
+            atomicAdd(dst + 2, sz);
+            atomicAdd(dst + 3, si);
+          }
+        }
+
+        if (valid) {
+          // Normalize backward: u -> n.
+          const float ndot = dnx * s.nx + dny * s.ny + dnz * s.nz;
+          const float dux = (dnx - s.nx * ndot) * s.n_inv;
+          const float duy = (dny - s.ny * ndot) * s.n_inv;
+          const float duz = (dnz - s.nz * ndot) * s.n_inv;
+          // Attribute interpolation transposes (corner-major columns).
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float sbc = g.sb[c];
+            acc[26 + 3 * c] += dp3x * sbc;
+            acc[27 + 3 * c] += dp3y * sbc;
+            acc[28 + 3 * c] += dp3z * sbc;
+            acc[35 + 3 * c] += dux * sbc;
+            acc[36 + 3 * c] += duy * sbc;
+            acc[37 + 3 * c] += duz * sbc;
+            acc[44 + 3 * c] += dcr * sbc;
+            acc[45 + 3 * c] += dcg * sbc;
+            acc[46 + 3 * c] += dcbl * sbc;
+            dsb[c] += dp3x * r[26 + 3 * c] + dp3y * r[27 + 3 * c] +
+                      dp3z * r[28 + 3 * c] + dux * r[35 + 3 * c] +
+                      duy * r[36 + 3 * c] + duz * r[37 + 3 * c] +
+                      dcr * r[44 + 3 * c] + dcg * r[45 + 3 * c] +
+                      dcbl * r[46 + 3 * c];
+          }
+          // L1-normalize backward: sb = ow / sum(|ow|).
+          const float sdot = dsb[0] * g.sb[0] + dsb[1] * g.sb[1] +
+                             dsb[2] * g.sb[2];
+          float dcb[3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float dow =
+                (dsb[c] - sdot * sign_of(g.ow[c])) * g.inv_denom;
+            dcb[c] = dow * r[53 + c];
+            acc[53 + c] += dow * g.cb[c];  // d(1/w); the pack's chain: dw
+          }
+          float dts[3] = {0.0f, 0.0f, 0.0f};
+          if (g.inside) {
+            // cb = the screen barycentrics, linear in (px, py, 1).
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              acc[3 * c + 0] += dcb[c] * px;
+              acc[3 * c + 1] += dcb[c] * py;
+              acc[3 * c + 2] += dcb[c];
+            }
+          } else {
+            // cb from the picked edge's offset t.
+            dts[0] = g.pick == 0 ? dcb[1] - dcb[0] : 0.0f;
+            dts[1] = g.pick == 1 ? dcb[2] - dcb[1] : 0.0f;
+            dts[2] = g.pick == 2 ? dcb[0] - dcb[2] : 0.0f;
+          }
+          edge_gradients<true>(r, g, px, py, dsq, dts, acc);
+        }
+      }
+
+      // Row k's last item of this run: its 48 columns, summed over the
+      // warp once, go to the table; then on to the next row with items.
+      if (i + 1 < i1 && (k + 1 >= n_kept || s_start[k + 1] > i + 1)) {
+        continue;
+      }
+      if (any_valid) {
+        float t[kPaddedCols];
+#pragma unroll
+        for (int c = 0; c < kPaddedCols; ++c) {
+          t[c] = c < kNumGradCols ? acc[grad_col(c)] : 0.0f;
+        }
+        reduce_scatter<kPaddedCols / 2>(t, lane);
+        float* out = dtab_b + static_cast<size_t>(t0 + kept_ids[k]) * kCols;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 2 * lane + j;
+          if (c < kNumGradCols && t[j] != 0.0f) {
+            atomicAdd(out + grad_col(c), t[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+      any_valid = false;
+      while (k + 1 < n_kept && s_start[k + 1] <= i + 1) ++k;
+    }
+  }
+  // Most CTAs stage no row (1,633 of 8,192 stage one on the 256x256
+  // batch-4 teapot): they leave without the epilogue.
+  if (!residuals_staged) return;  // uniform over the block
+  const float sig_total = warp_sum(dsig);
+  const float gam_total = warp_sum(dgam);
+  if (lane == 0 && (sig_total != 0.0f || gam_total != 0.0f)) {
+    atomicAdd(&s_acc[4 * n_shared + 0], sig_total);
+    atomicAdd(&s_acc[4 * n_shared + 1], gam_total);
   }
   __syncthreads();
   for (int i = tid; i < n_acc; i += kSoftThreads) {
-    float* dst = i < 4 * num_lights
-                     ? dlights + static_cast<size_t>(b) * 4 * num_lights + i
-                     : dparams + static_cast<size_t>(b) * 2 +
-                           (i - 4 * num_lights);
-    atomicAdd(dst, s_acc[i]);
+    const float total = s_acc[i];
+    if (total == 0.0f) continue;
+    float* dst = i < 4 * n_shared ? dlights_b + i
+                                  : dparams + static_cast<size_t>(b) * 2 +
+                                        (i - 4 * n_shared);
+    atomicAdd(dst, total);
   }
 }
 
@@ -278,23 +451,47 @@ __global__ void __launch_bounds__(kSoftThreads) soft_bwd_kernel(
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous tensors; dtable,
-// dlights and dparams are zeroed. The caller checks shapes, types,
-// alignment and num_lights <= 64.
+// dlights and dparams are zeroed. The caller checks shapes, types and
+// alignment. `split` is the CTAs per pixel block: 0 for kSplit, the
+// kernel's own; other values serve only to measure that choice.
 extern "C" int soft_bwd(const void* table, const void* lights,
                         const void* params, const void* rgba, const void* m,
                         const void* sumw, const void* d_rgba, void* dtable,
                         void* dlights, void* dparams, int batch, int num_tris,
                         int num_lights, int width, int height,
-                        int full_height, void* stream) {
+                        int full_height, int split, void* stream) {
+  if (split == 0) split = kSplit;
+  if (split < 1 || static_cast<long long>(batch) * split > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const cudaError_t error = cudaFuncSetAttribute(
+      soft_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSlabBytes);
+  if (error != cudaSuccess) return static_cast<int>(error);
   const dim3 block(kSoftBlockX, kSoftBlockY);
   const dim3 grid((width + kSoftBlockX - 1) / kSoftBlockX,
-                  (height + kSoftBlockY - 1) / kSoftBlockY, batch);
-  soft_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+                  (height + kSoftBlockY - 1) / kSoftBlockY, batch * split);
+  soft_bwd_kernel<<<grid, block, kSlabBytes,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const float4*>(lights),
       static_cast<const float*>(params), static_cast<const float4*>(rgba),
       static_cast<const float*>(m), static_cast<const float*>(sumw),
       static_cast<const float4*>(d_rgba), static_cast<float*>(dtable),
       static_cast<float*>(dlights), static_cast<float*>(dparams), num_tris,
-      num_lights, width, height, full_height);
+      num_lights, width, height, full_height, split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident CTAs of soft_bwd_kernel per SM at its block size
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error.
+extern "C" int soft_bwd_blocks_per_sm() {
+  cudaError_t error = cudaFuncSetAttribute(
+      soft_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSlabBytes);
+  int blocks = 0;
+  if (error == cudaSuccess) {
+    error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, soft_bwd_kernel, kSoftThreads, kSlabBytes);
+  }
+  return error == cudaSuccess ? blocks : -static_cast<int>(error);
 }

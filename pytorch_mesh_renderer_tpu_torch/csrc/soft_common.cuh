@@ -20,19 +20,31 @@
 // of the bytes: 24-40 bytes of per-pixel images read and written, and the
 // [B, T, 59] tables. The triangle rows (236 bytes each) are read by every
 // block that keeps them and stay in L2. What the measured times follow is
-// neither: it is the per-block loop over staged triangles below.
+// neither: it is the chain of dependent work on the few busy blocks (on
+// the 256x256 batch-4 teapot 208 of 1,024 pixel blocks hold a valid pair).
 //
-// What the design does about it: one thread per pixel of a 16x16 block.
-// 128 threads test 128 triangle rows at a time against the block's
-// pixel-centre extent (keep, and the bbox of cols 22-25), compact the kept
-// rows in index order with warp ballots and stage them in shared memory;
-// every thread then runs its pixel against the staged rows only. The
-// per-pixel bbox test uses the same px, py and comparisons, so a culled
-// triangle is one that no pixel of the block would have found valid, and
-// an invalid pair is an exact no-op of the per-triangle updates (coverage
-// 0 multiplies the silhouette by exactly 1.0; the softmax state is left
-// as it is). The cull changes no output bit. There is no binning prepass
-// and no per-pass triangle cap: rows stream from device memory.
+// What the design does about it. Forward kernels (K5, K7) and K6: one
+// thread per pixel of a 16x16 block. 128 threads test 128 triangle rows
+// at a time against the block's pixel-centre extent (keep, and the bbox of
+// cols 22-25), compact the kept rows in index order with warp ballots and
+// stage them in shared memory (`stage_rows`); every thread then runs its
+// pixel against the staged rows only. The per-pixel bbox test uses the
+// same px, py and comparisons, so a culled triangle is one that no pixel
+// of the block would have found valid, and an invalid pair is an exact
+// no-op of the per-triangle updates (coverage 0 multiplies the silhouette
+// by exactly 1.0; the softmax state is left as it is). The cull changes no
+// output bit. There is no binning prepass and no per-pass triangle cap:
+// rows stream from device memory.
+//
+// K8 (soft_bwd.cu) keeps the pixel blocks and the cull but splits each
+// block's triangles over kSplit CTAs: CTA s stages only the rows
+// t = s (mod kSplit) (`stage_rows`' row stride, 256 rows a pass), and
+// inside it the (staged triangle, 16x2 row pair its bbox touches) items
+// are cut into one equal run per warp, one pixel per lane. A busy block's
+// work so spreads over kSplit x 8 warps instead of queueing on 8.
+//
+// Lights are read from device memory through the read-only cache; no
+// kernel caps their count.
 //
 // Rounding: build with --fmad=false; every expression keeps the operation
 // order of the plain PyTorch version (ops/soft_rasterize_cuda.py) and of
@@ -57,8 +69,6 @@ constexpr int kSlabRows = 128;
 constexpr int kSlabWarps = kSlabRows / 32;
 static_assert(kSlabRows % 32 == 0 && kSlabRows <= kSoftThreads,
               "one culling thread per tested row, in whole warps");
-// Lights live in shared memory; the wrappers refuse more.
-constexpr int kMaxLights = 64;
 constexpr float kEps = 1e-10f;  // background floor, soft_rasterize.py:40
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -99,23 +109,29 @@ __device__ __forceinline__ BlockExtent block_extent(int width, int height,
       pixel_y(y0, row_off, full_height)};
 }
 
-// Tests rows [t0, t0 + n) of one image's table (n <= kSlabRows) against
-// the block and copies the kept ones, in index order, to `slab`
-// (kSlabRows x kCols). Returns their count. Every thread of the block must
-// call it; it starts and ends with a block barrier.
+// Tests rows t0, t0 + stride, ..., t0 + (n - 1) stride (n <= kRows) of
+// one image's table against the block and copies the kept ones, in index
+// order, to `slab` (kRows x kCols); kept_ids[k] (kRows) is the k-th kept
+// row's offset from t0; warp_kept holds kRows / 32 counts. Returns the
+// kept rows' count. Every thread of the block must call it; it starts and
+// ends with a block barrier.
+template <int kRows = kSlabRows>
 __device__ __forceinline__ int stage_rows(const float* __restrict__ rows_b,
-                                          int t0, int n,
+                                          int t0, int n, int stride,
                                           const BlockExtent& e, float* slab,
                                           int* kept_ids, int* warp_kept) {
+  static_assert(kRows % 32 == 0 && kRows <= kSoftThreads,
+                "one culling thread per tested row, in whole warps");
   const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   __syncthreads();  // the previous slab has been consumed
   bool keep = false;
   unsigned kept_mask = 0;
-  if (tid < kSlabRows) {  // whole warps
+  if (tid < kRows) {  // whole warps
     if (tid < n) {
-      const float* r = rows_b + static_cast<size_t>(t0 + tid) * kCols;
+      const float* r =
+          rows_b + static_cast<size_t>(t0 + tid * stride) * kCols;
       keep = r[21] > 0.0f && r[23] >= e.px_lo && r[22] <= e.px_hi &&
              r[25] >= e.py_lo && r[24] <= e.py_hi;
     }
@@ -125,11 +141,13 @@ __device__ __forceinline__ int stage_rows(const float* __restrict__ rows_b,
   __syncthreads();
   int n_kept = 0;
   int slot = 0;
-  for (int w = 0; w < kSlabWarps; ++w) {
+  for (int w = 0; w < kRows / 32; ++w) {
     if (w < warp) slot += warp_kept[w];
     n_kept += warp_kept[w];
   }
-  if (keep) kept_ids[slot + __popc(kept_mask & ((1u << lane) - 1u))] = tid;
+  if (keep) {
+    kept_ids[slot + __popc(kept_mask & ((1u << lane) - 1u))] = tid * stride;
+  }
   __syncthreads();
   for (int i = tid; i < n_kept * kCols; i += kSoftThreads) {
     const int k = i / kCols;
@@ -225,7 +243,8 @@ __device__ __forceinline__ SoftGeometry soft_geometry(const float* r,
 }
 
 // Phong diffuse shading of a valid pair (:378-410): the interpolated world
-// point, unit normal and colour, and the summed light term.
+// point, unit normal and colour, and the summed light term. `lights` points
+// to one image's lights in device memory.
 struct SoftShade {
   float p3x, p3y, p3z;
   float nx, ny, nz;
@@ -256,7 +275,7 @@ __device__ __forceinline__ SoftShade soft_shade(const float* r,
   s.cb = s0 * r[46] + s1 * r[49] + s2 * r[52];
   float light_sum = 0.0f;
   for (int l = 0; l < num_lights; ++l) {
-    const float4 lt = lights[l];
+    const float4 lt = __ldg(lights + l);
     const float dx = lt.x - s.p3x;
     const float dy = lt.y - s.p3y;
     const float dz = lt.z - s.p3z;

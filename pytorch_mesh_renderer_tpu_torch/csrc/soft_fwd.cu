@@ -36,35 +36,31 @@ __global__ void __launch_bounds__(kSoftThreads) soft_fwd_kernel(
   __shared__ float slab[kSlabRows * kCols];
   __shared__ int kept_ids[kSlabRows];
   __shared__ int warp_kept[kSlabWarps];
-  __shared__ float4 s_lights[kMaxLights];
 
   const int b = blockIdx.z;
-  const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
   const int x = blockIdx.x * kSoftBlockX + threadIdx.x;
   const int y = blockIdx.y * kSoftBlockY + threadIdx.y;
   const bool in_image = x < width && y < height;
   const SoftParams p = load_params(params);
-  for (int l = tid; l < num_lights; l += kSoftThreads) {
-    s_lights[l] = lights[static_cast<size_t>(b) * num_lights + l];
-  }
   const float px = pixel_x(x, width);
   const float py = pixel_y(y, p.row_off, full_height);
   const BlockExtent extent = block_extent(width, height, p.row_off,
                                           full_height);
   const float* rows_b = table + static_cast<size_t>(b) * num_tris * kCols;
+  const float4* lights_b = lights + static_cast<size_t>(b) * num_lights;
 
   float m = kEps / p.gamma;
   float sum_w = 0.0f, sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
   float sil = 1.0f;
   for (int t0 = 0; t0 < num_tris; t0 += kSlabRows) {
     const int n_kept = stage_rows(rows_b, t0, min(kSlabRows, num_tris - t0),
-                                  extent, slab, kept_ids, warp_kept);
+                                  1, extent, slab, kept_ids, warp_kept);
     if (!in_image) continue;
     for (int k = 0; k < n_kept; ++k) {
       const float* r = slab + k * kCols;
       const SoftGeometry g = soft_geometry(r, px, py, p.sigma, p.sq_blur);
       if (!g.valid) continue;
-      const SoftShade s = soft_shade(r, g, s_lights, num_lights);
+      const SoftShade s = soft_shade(r, g, lights_b, num_lights);
       const float logit = g.z / p.gamma;
       const float new_max = fmaxf(m, logit);
       const float scale = expf(m - new_max);
@@ -92,7 +88,7 @@ __global__ void __launch_bounds__(kSoftThreads) soft_fwd_kernel(
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous tensors. The caller
-// checks shapes, types, alignment and num_lights <= 64.
+// checks shapes, types and alignment.
 extern "C" int soft_fwd(const void* table, const void* lights,
                         const void* params, void* rgba, void* m, void* sumw,
                         int batch, int num_tris, int num_lights, int width,

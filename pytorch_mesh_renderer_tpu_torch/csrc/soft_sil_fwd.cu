@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kSoftThreads) soft_sil_fwd_kernel(
   float sil = 1.0f;
   for (int t0 = 0; t0 < num_tris; t0 += kSlabRows) {
     const int n_kept = stage_rows(rows_b, t0, min(kSlabRows, num_tris - t0),
-                                  extent, slab, kept_ids, warp_kept);
+                                  1, extent, slab, kept_ids, warp_kept);
     if (!in_image) continue;
     for (int k = 0; k < n_kept; ++k) {
       const SoftGeometry g =

@@ -6,6 +6,7 @@ operand checks and launch, devices and timers."""
 from __future__ import annotations
 
 import statistics
+import sys
 import time
 
 import numpy as np
@@ -146,31 +147,66 @@ def wall_ms(fn, device, iters, windows=5, warmup=3):
     return statistics.median(per_call)
 
 
-def device_profile(fn, iters):
+# device_profile's breakdown when the profiler recorded no kernel: the
+# total by CUDA events, under this one key.
+EVENTS_ONLY = "all kernels (CUDA events; the profiler recorded none)"
+
+
+def held_events_ms(fn, iters):
+    """Device ms per call of `iters` back-to-back calls of `fn`, by CUDA
+    events recorded behind a spin kernel that holds the card until the
+    host has queued every call, so the host's enqueueing does not count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # 2e9 cycles per second is above the card's clock: the hold is long
+    # enough at any clock.
+    hold_s = min(2.0 * iters * enqueue_s + 1e-3, 2.0)
+    torch.cuda._sleep(int(hold_s * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, iters, attempts=3):
     """torch.profiler over `iters` calls of `fn` on the card after one:
     (device ms per call by kernel name, total device ms per call, kernels
-    per call), without host enqueueing or gaps. Raises if the profiler
-    recorded no device kernel."""
+    per call), without host enqueueing or gaps. A profile that recorded
+    no device kernel (the profiler drops a session's kernels now and then)
+    is taken again; after `attempts` such, the total is held_events_ms's,
+    the breakdown holds it under EVENTS_ONLY and the kernel count is nan."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    count = 0
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.time_range.elapsed_us() / 1e3)
-            count += 1
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device kernels")
-    by_name = {k: v / iters for k, v in by_name.items()}
-    return by_name, sum(by_name.values()), count / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        count = 0
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[event.name] = (by_name.get(event.name, 0.0)
+                                       + event.time_range.elapsed_us() / 1e3)
+                count += 1
+        if by_name:
+            by_name = {k: v / iters for k, v in by_name.items()}
+            return by_name, sum(by_name.values()), count / iters
+        print("torch.profiler recorded no device kernels; profiling again",
+              file=sys.stderr, flush=True)
+    total = held_events_ms(fn, iters)
+    return {EVENTS_ONLY: total}, total, float("nan")
 
 
 def device_ms(fn, device, iters):

@@ -59,7 +59,6 @@ from .rasterize_cuda import check_kernel_operands
 COLS = 59
 EPS = 1e-10  # background-probability floor
 NEG_BIG = -1e30
-MAX_LIGHTS = 64  # the kernels keep the lights in shared memory
 
 # Launches of K7 (FWD), K8 (BWD), K5 (SIL_FWD) and K6 (SIL_BWD) in this
 # process; each launcher adds one per launch and nothing else touches them.
@@ -418,9 +417,6 @@ def _check_lights(lights, table):
             or lights.shape[-1] != 4):
         raise ValueError(f"lights have shape {tuple(lights.shape)}; want "
                          "[B, L, 4]")
-    if lights.shape[1] > MAX_LIGHTS:
-        raise ValueError(f"the soft kernels take at most {MAX_LIGHTS} "
-                         f"lights, got {lights.shape[1]}")
 
 
 def _check_aligned(**tensors):
@@ -465,12 +461,15 @@ def launch_soft_fwd(table, lights, params, image_width, image_height,
 
 
 def launch_soft_bwd(table, lights, params, rgba, run_max, sum_w, d_rgba,
-                    full_height):
+                    full_height, split=0):
     """Launch K8; returns (dtable [B, T, 59], dlights [B, L, 4],
     dparams [B, 2] = per-image (dsigma, dgamma)).
 
     rgba, run_max and sum_w are K7's outputs, d_rgba [B, H, W, 4] the
     cotangent; every operand a contiguous f32 tensor on one CUDA device.
+    split: CTAs per pixel block; 0, the default, takes the kernel's
+    compiled kSplit. Other values serve only to measure that choice
+    (chip_smoke.py).
     """
     global BWD_LAUNCHES
     device = table.device
@@ -504,7 +503,7 @@ def launch_soft_bwd(table, lights, params, rgba, run_max, sum_w, d_rgba,
             rgba.data_ptr(), run_max.data_ptr(), sum_w.data_ptr(),
             d_rgba.data_ptr(), dtable.data_ptr(), dlights.data_ptr(),
             dparams.data_ptr(), batch, n_tri, n_lights, width, height,
-            full_height, _stream(device))
+            full_height, int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_bwd launch")
     BWD_LAUNCHES += 1
     return dtable, dlights, dparams

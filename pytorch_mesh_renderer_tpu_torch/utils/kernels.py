@@ -135,7 +135,8 @@ def load_library() -> ctypes.CDLL:
                                                                ptr]
     lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
+    lib.soft_bwd_blocks_per_sm.argtypes = []
     lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.mxu_edge_fma.argtypes = [ptr] * 3 + [i32] * 3 + [f32, ptr]
@@ -145,7 +146,8 @@ def load_library() -> ctypes.CDLL:
     lib.patch_eval.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
     for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
                   lib.rasterize_bary_fwd, lib.rasterize_bary_bwd,
-                  lib.soft_fwd, lib.soft_bwd, lib.soft_sil_fwd,
+                  lib.soft_fwd, lib.soft_bwd, lib.soft_bwd_blocks_per_sm,
+                  lib.soft_sil_fwd,
                   lib.soft_sil_bwd, lib.mxu_edge_fma, lib.mxu_edge_tc,
                   lib.mxu_full_prod, lib.mxu_full_tc, lib.patch_eval):
         entry.restype = i32

@@ -224,6 +224,11 @@ def check_jacobians_are_nearly_equal(theoretical, numerical,
 
 SOFT_SIGMA, SOFT_GAMMA, SOFT_BLUR = 1e-3, 1e-2, 0.08
 SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
+# Scenes at K8's edges: 65 and 0 lights (the kernels cap none), a quad of
+# two triangles filling a 256x256 frame (one triangle covers every pixel
+# block, so every CTA of a block's split walks all its row pairs) and a
+# batch whose second image holds no valid pair.
+SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image")
 # Forward gates (tests/test_soft_pallas.py:62, the JAX suite's gate between
 # its two soft backends). The kernels aggregate the softmax per triangle,
 # the plain version per chunk of triangles, so rgb differs in the last
@@ -294,10 +299,13 @@ def clip_from_eye(world, eye, width, height):
 
 def soft_scene(name, device):
     """A SoftScene by name: 'two_triangle' (tests/test_soft_pallas.py:20-41,
-    16x16), 'cube' (64x48), 'random1' / 'random3' (the JAX suite's
-    multi-tile scene with 1 or 3 lights, 48x40) or 'sphere' (2 * 157^2 =
-    49,298 triangles, above the JAX package's per-pass cap of 49,152, at
-    64x64). Inputs come from seeded numpy generators."""
+    16x16), 'cube' (64x48), 'random<L>' (the JAX suite's multi-tile scene
+    with L lights, 48x40: L = 1 and 3 as there, 0 and 65 at the kernels'
+    edges), 'empty_image' (random3 with its second image moved out of the
+    frame), 'quad' (two triangles filling a 256x256 frame at four depths)
+    or 'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
+    per-pass cap of 49,152, at 64x64). Inputs come from seeded numpy
+    generators."""
     from ..models import shapes
     from ..ops import soft_rasterize_cuda as sc
 
@@ -321,6 +329,29 @@ def soft_scene(name, device):
                                                    colors, lights))
         width = height = 16
         depth_matters = False  # every triangle at NDC z 0.25
+    elif name == "quad":
+        rng = np.random.RandomState(5)
+        ndc = np.float32([[-1.05, -1.05], [1.05, -1.05], [1.05, 1.05],
+                          [-1.05, 1.05]])
+        z = np.float32([[0.1], [0.3], [0.2], [0.4]])
+        w = np.float32([[1.0], [1.2], [0.9], [1.1]])
+        tris = np.int32([[0, 1, 2], [0, 2, 3]])  # CCW
+        world = np.concatenate([ndc, z], axis=1)
+        normals = np.float32([0.0, 0.0, 1.0]) + rng.uniform(-0.3, 0.3,
+                                                            [4, 3])
+        normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+        colors = rng.uniform(0.2, 1.0, [4, 3])
+        lights = np.float32([[0.5, 1.0, 3.0, 1.3], [-1.0, 0.5, 2.0, 0.7]])
+        clip = np.concatenate([ndc * w, z * w, w], axis=1)
+        clip, world, normals, colors, lights = (
+            torch.tensor(a[None], **f32) for a in (clip, world, normals,
+                                                   colors, lights))
+        width = height = 256
+        # At gamma 1e-2 one triangle per pixel puts the background weight
+        # on its 1e-10 floor, so rgb equals shade to the last bits and
+        # d/dgamma sums f32 rounding (K7's rgb and the plain version's
+        # differ there); gamma 1 keeps it a real gradient.
+        gamma = 1.0
     elif name == "sphere":
         v, tris, _ = shapes.sphere(1.0, resolution=157)
         world = v[None].to(device)
@@ -330,7 +361,8 @@ def soft_scene(name, device):
         lights = torch.tensor([[[0.0, 2.0, 4.0, 1.0]]], **f32)
         sigma, gamma, blur, chunk = 1e-4, 1e-3, 0.01, 512
     else:
-        n_lights = 1 if name == "cube" else int(name[6:])
+        n_lights = (1 if name == "cube" else 3 if name == "empty_image"
+                    else int(name[6:]))
         if name == "cube":
             batch = 1
             world = torch.tensor([[-1, -1, 1], [-1, -1, -1], [-1, 1, -1],
@@ -342,7 +374,7 @@ def soft_scene(name, device):
             normals = world / torch.linalg.norm(world, dim=-1, keepdim=True)
             colors = world * 0.5 + 0.5
             eye, (width, height) = [2.0, 3.0, 6.0], (64, 48)
-        elif name in ("random1", "random3"):
+        elif name == "empty_image" or name[:6] == "random":
             rng = np.random.RandomState(n_lights)
             batch, width, height = 2, 48, 40
             world = torch.tensor(rng.randn(batch, 24, 3) * 0.5, **f32)
@@ -353,6 +385,8 @@ def soft_scene(name, device):
             colors = torch.tensor(rng.uniform(0.2, 1.0, (batch, 24, 3)),
                                   **f32)
             eye = [0.0, 0.0, 3.0]
+            if name == "empty_image":
+                world[1, :, 0] += 50.0  # out of the frame
         else:
             raise ValueError(f"unknown soft scene {name!r}")
         rng = np.random.RandomState(10 + n_lights)

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from pytorch_mesh_renderer_tpu_torch import config as config_lib
+from pytorch_mesh_renderer_tpu_torch.microbench import common
 from pytorch_mesh_renderer_tpu_torch.microbench import mxu_edge as me
 from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
 from pytorch_mesh_renderer_tpu_torch.microbench import patch_scatter as ps
@@ -394,6 +395,56 @@ def test_soft_row_strips_and_empty_mesh(dev):
     assert all(err == scale == 0.0 for _, err, scale in errors["soft_bwd"])
 
 
+@pytest.mark.parametrize("scene", test_utils.SOFT_EDGE_SCENES)
+def test_soft_kernels_match_plain_versions_at_k8_edges(dev, scene):
+    """K7, K5, K8 and K6 against their plain versions at 65 and at 0
+    lights, on a quad of two triangles filling a 256x256 frame, and on a
+    batch whose second image holds no valid pair: that image is background
+    and its table gradient exactly 0."""
+    soft_scene = test_utils.soft_scene(scene, dev)
+    n_lights = {"random65": 65, "random0": 0}
+    assert soft_scene.lights.shape[1] == n_lights.get(scene, 3 if scene ==
+                                                      "empty_image" else 2)
+    before = _soft_launches()
+    k7, alpha, _ = test_utils.compare_soft_forward(soft_scene)
+    d_rgba = test_utils.soft_cotangents(soft_scene.table.shape[0],
+                                        soft_scene.height, soft_scene.width,
+                                        dev)
+    dtable, _, errors = test_utils.compare_soft_backward(soft_scene, k7,
+                                                         alpha, d_rgba)
+    assert _soft_launches() == tuple(b + 1 for b in before)
+    assert float(alpha[0].max()) > 0.5
+    assert any(scale > 0.0 for label, _, scale in errors["soft_bwd"]
+               if "dtable" in label)
+    if scene == "empty_image":
+        assert torch.equal(k7[0][1], torch.zeros_like(k7[0][1]))
+        assert torch.equal(dtable[1], torch.zeros_like(dtable[1]))
+
+
+def test_soft_backward_row_strips_on_the_full_frame_quad(dev):
+    """K8 on row strips whose offsets (100, 164) cut pixel blocks, each
+    strip against the plain version at its row offset; the strips' forward
+    rows equal the full frame's and their table gradients sum to its."""
+    full = test_utils.soft_scene("quad", dev)
+    k7, alpha, _ = test_utils.compare_soft_forward(full)
+    d_rgba = test_utils.soft_cotangents(1, 256, 256, dev, seed=9)
+    full_dtable = test_utils.compare_soft_backward(full, k7, alpha,
+                                                   d_rgba)[0]
+    dtables = []
+    for lo, hi in ((0, 100), (100, 164), (164, 256)):
+        strip = full._replace(height=hi - lo, params=sc.make_params(
+            full.params[0], full.params[1], test_utils.SOFT_BLUR, lo, dev))
+        strip_k7, strip_alpha, _ = test_utils.compare_soft_forward(
+            strip, lo, 256)
+        for s, f in zip(strip_k7, k7):
+            assert torch.equal(s, f[:, lo:hi])
+        dtables.append(test_utils.compare_soft_backward(
+            strip, strip_k7, strip_alpha, d_rgba[:, lo:hi].contiguous(), lo,
+            256)[0])
+    test_utils.grad_errors("the strips' dtable", sum(dtables), full_dtable,
+                           SOFT_GRAD_RTOL, test_utils.SOFT_DTABLE_GROUPS)
+
+
 def _soft_render_args(dev):
     v, t, _ = shapes.cube(2.0)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -527,3 +578,19 @@ def test_microbench_wrappers_reject_what_the_kernels_do_not_take(dev):
         me.launch_tc(coeff, pix, 4, 8, "fma")
     with pytest.raises(ValueError, match="CUDA"):
         ps.launch_patch_eval(torch.zeros(1, 8, 20), 64, (16, 8))
+
+
+def test_device_profile_falls_back_to_cuda_events(dev):
+    # The microbenchmark kernel fma at its headline shape, profiled and, as
+    # when the profiler records no kernel, by held CUDA events.
+    data = me.make_inputs(512, 8, dev)[0]
+
+    def fn():
+        return me.launch_fma(data, 512, 8)
+
+    by_name, total, count = common.device_profile(fn, iters=20)
+    assert common.EVENTS_ONLY not in by_name and count >= 1 and total > 0
+    by_name, events, count = common.device_profile(fn, iters=20, attempts=0)
+    assert by_name == {common.EVENTS_ONLY: events} and count != count
+    # The events also count the gaps between back-to-back kernels.
+    assert 0.9 * total <= events <= 1.5 * total + 0.01

@@ -7,7 +7,8 @@ assets) and handed to both packages; the port runs on the CPU, so every
 call takes the plain versions of K5-K8.
 Tolerances, with their reasons:
   * `render` and `render_silhouette` vs the JAX models (XLA backend) on the
-    cube and on the teapot (32x32, batch 2), at the renderer's defaults
+    cube and on the teapot (32x32, batch 2), and `render` of the cube with
+    65 lights (16x16), at the renderer's defaults
     (sigma 1e-5, gamma 1e-4): atol 1e-4 / rtol 1e-3 on every channel. The
     camera products round in another order in each framework: at sigma
     1e-5 a 1e-7 shift of a projected vertex moves an edge pixel's coverage
@@ -15,7 +16,8 @@ Tolerances, with their reasons:
     softmax weight by 1e-4 relative.
   * silhouette alpha equals the full render's alpha bit for bit.
   * the cube's d mean(rgba^2) / d vertices vs
-    `jax.grad`: 1e-3 of the JAX gradient's max |value|. At sigma 1e-5 the
+    `jax.grad`, with one light and with 65: 1e-3 of the JAX gradient's max
+    |value|. At sigma 1e-5 the
     coverage derivative is ~1e5 at edge pixels, so the camera's rounding
     differences (above) reach the gradient ten times more than at the
     kernel-level scenes of tests/test_torch_soft_rasterize.py (1e-4).
@@ -134,6 +136,37 @@ def test_vertex_gradient_matches_jax():
     def loss(vertices):
         out = jsoft.render(vertices, *rest, 32, 32)
         return jnp.mean(out ** 2)
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(scene["vertices"],
+                                                 jnp.float32)))
+    scale = float(np.abs(want).max())
+    assert scale > 0.0 and bool(torch.isfinite(v.grad).all())
+    assert float(np.abs(v.grad.numpy() - want).max()) <= 1e-3 * scale
+
+
+def test_render_with_65_lights_and_its_gradient_match_jax():
+    """65 lights, past the 64 the soft kernels once held in shared memory:
+    the render and d mean(rgba^2) / d vertices of the cube at 16x16 match
+    the JAX package's, within the gates above."""
+    scene = _cube_scene()
+    rng = np.random.RandomState(65)
+    scene["lights"] = (rng.randn(1, 65, 3) * 3.0 + [0.0, 2.0, 6.0]).tolist()
+    scene["intensities"] = rng.uniform(0.005, 0.03, (1, 65)).tolist()
+    ours, theirs = _render_both(scene, 16)
+    assert ours.shape == (1, 16, 16, 4) and bool(torch.isfinite(ours).all())
+    assert float(ours[..., :3].max()) > 0.1
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-4, rtol=1e-3)
+
+    ts = scene_to_torch(scene, "cpu")
+    v = ts["vertices"].clone().requires_grad_(True)
+    images = soft_mesh_renderer.render(v, *[ts[k] for k in RENDER_KEYS[1:]],
+                                       16, 16)
+    torch.mean(images ** 2).backward()
+    rest = [np.asarray(scene[k], np.float32 if k != "triangles"
+                       else np.int32) for k in RENDER_KEYS[1:]]
+
+    def loss(vertices):
+        return jnp.mean(jsoft.render(vertices, *rest, 16, 16) ** 2)
 
     want = np.asarray(jax.grad(loss)(jnp.asarray(scene["vertices"],
                                                  jnp.float32)))
