@@ -38,18 +38,22 @@ and runs these phases, printing one line or more per phase:
 The soft (SoftRas) renderer's phases follow:
 
   8. soft-kernel — K5-K8 vs their plain versions: the 16x16 two-triangle
-               scene, the cube, random scenes with 1 and 3 lights, K8's
+               scene, the cube, random scenes with 1 and 3 lights, the
                edge scenes (65 and 0 lights, a quad of two triangles
                filling a 256x256 frame, a batch whose second image holds no
                valid pair, whose gradients must be exactly 0), two row
                strips against the full image, the zero-triangle mesh, the
                256x256 batch-4 teapot and a sphere of 49,298 triangles at
-               64x64 in one launch per kernel. Forward: rgb within 2e-5 abs
-               + 1e-4 rel, alpha within 1e-6, K5's alpha equal to K7's bit
-               for bit. Backward, under seeded cotangents with rgb and alpha
-               parts: within 1e-4 of each plain tensor's max |value|, the
-               table gradient's per group of columns that come from one
-               input of the packing (clip, world, normals, colours).
+               64x64 in one launch per kernel and split. K7 runs at its
+               compiled split and at each split tried (clusters of 4 and 8
+               CTAs per pixel block), K6 at each of 4, 8 and 16 too.
+               Forward: rgb within 2e-5 abs + 1e-4 rel, alpha within 1e-6,
+               K7's outputs equal at every split and K5's alpha equal to
+               K7's, bit for bit. Backward, under seeded cotangents with rgb
+               and alpha parts: within 1e-4 of each plain tensor's max
+               |value|, the table gradient's per group of columns that come
+               from one input of the packing (clip, world, normals,
+               colours).
   9. soft-main — `soft_mesh_renderer.render` on the teapot at 256x256 batch
                4 with 2 lights, counting K7 launches, against the plain
                route.
@@ -66,12 +70,14 @@ The soft (SoftRas) renderer's phases follow:
  12. soft-times — CUDA-event medians of each soft kernel vs its plain
                version, the soft render, the soft steps, the silhouette
                step and the fit step, and device time by kernel from
-               torch.profiler. Then K8 alone (utils/soft_work.py): its
-               registers, spills, shared memory and CTAs per SM, the counts
-               of where its work falls on the teapot, and its launch and
-               device times at 256x256 and 128x128, at its compiled split
-               and at each split of a pixel block's triangles tried (4, 8,
-               16 CTAs).
+               torch.profiler. Then K6, K7 and K8 alone
+               (utils/soft_work.py): each one's registers, spills, shared
+               memory and CTAs per SM, and its launch and device times at
+               its compiled split and at each split of a pixel block's
+               triangles tried (K6 4, 8, 16 CTAs at the teapot 256x256 and
+               the fit's shape; K7 clusters of 4 and 8 at the teapot
+               256x256 and 128x128; K8 4, 8, 16 at both teapot sizes); the
+               counts of where their work falls.
 
 The design microbenchmarks of scripts/ (S1-S3), ported in
 pytorch_mesh_renderer_tpu_torch/microbench/, follow:
@@ -477,17 +483,21 @@ def soft_phases(dev, card, teapot):
     # and under its gates (shared with tests/test_torch_cuda.py).
     worst = {}  # (kernel, tensor) -> max abs error / max |plain value|
 
+    sil_splits = test_utils.soft_splits("soft_sil_bwd")
+    fwd_splits = test_utils.soft_splits("soft_fwd")
+
     def compare_soft(name, scene, row_offset=0, full_height=None,
                      d_rgba=None):
-        """The four soft kernels vs their plain versions on one scene.
-        Returns K7's outputs, K5's alpha and K8's and K6's dtables."""
+        """The four soft kernels vs their plain versions on one scene, K7
+        and K6 at each split tried. Returns K7's outputs, K5's alpha and
+        K8's and K6's dtables."""
         k7, alpha, found = test_utils.compare_soft_forward(
-            scene, row_offset, full_height)
+            scene, row_offset, full_height, fwd_splits)
         if d_rgba is None:
             d_rgba = test_utils.soft_cotangents(
                 scene.table.shape[0], scene.height, scene.width, dev)
         dtable, sil_dtable, bwd_found = test_utils.compare_soft_backward(
-            scene, k7, alpha, d_rgba, row_offset, full_height)
+            scene, k7, alpha, d_rgba, row_offset, full_height, sil_splits)
         found.update(bwd_found)
         report = []
         for kernel_name, entries in found.items():
@@ -506,11 +516,13 @@ def soft_phases(dev, card, teapot):
     for name in test_utils.SOFT_SCENES:
         compare_soft(name, test_utils.soft_scene(name, dev))
     for name in test_utils.SOFT_EDGE_SCENES:
-        k7, _, dtable, _ = compare_soft(name, test_utils.soft_scene(name,
-                                                                    dev))
+        k7, _, dtable, sil_dtable = compare_soft(
+            name, test_utils.soft_scene(name, dev))
         if name == "empty_image" and not (
                 torch.equal(k7[0][1], torch.zeros_like(k7[0][1]))
-                and torch.equal(dtable[1], torch.zeros_like(dtable[1]))):
+                and torch.equal(dtable[1], torch.zeros_like(dtable[1]))
+                and torch.equal(sil_dtable[1],
+                                torch.zeros_like(sil_dtable[1]))):
             raise AssertionError("empty_image: the second image is not "
                                  "background with a zero table gradient")
 
@@ -562,10 +574,12 @@ def soft_phases(dev, card, teapot):
     sphere = test_utils.soft_scene("sphere", dev)
     reset_soft_launch_counts()
     compare_soft(f"sphere {sphere.table.shape[1]} triangles 64x64", sphere)
-    if soft_launch_counts() != {name: 1 for name in names}:
+    if soft_launch_counts() != {**{name: 1 for name in names},
+                                "soft_fwd": len(fwd_splits),
+                                "soft_sil_bwd": len(sil_splits)}:
         raise AssertionError(f"sphere: launches {soft_launch_counts()}")
     log("soft-kernel", f"sphere of {sphere.table.shape[1]} triangles: one "
-        f"launch per kernel {soft_launch_counts()}")
+        f"launch per kernel and split {soft_launch_counts()}")
     log("soft-kernel", "worst max abs error of max |plain| per tensor over "
         "the scenes: " + ", ".join(f"{k} {label} {rel:.3g}" for (k, label),
                                    rel in worst.items()))
@@ -738,32 +752,31 @@ def soft_phases(dev, card, teapot):
             f"{step_ms[label]:.4f} ms, "
             f"{TEAPOT_BATCH * 1000.0 / step_ms[label]:.2f} renders/s")
 
-    # K8 alone: its build, where its work falls, and its times at the
-    # compiled split and at each split tried.
-    log("soft-times", f"{card} | soft_bwd_kernel: " + json.dumps(
-        soft_work.kernel_report(kernels.build().log)))
-    for size in (TEAPOT_SIZE, 128):
-        k8_scene = soft_work.teapot_table(size, dev, TEAPOT_BATCH)
-        counts = soft_work.pair_counts(k8_scene[0], size, size,
-                                       float(k8_scene[2][2]))
-        times = []
-        for split in (0, 4, 8, 16):
-            launch_ms, device_ms = soft_work.time_soft_bwd(*k8_scene, size,
-                                                           split)
-            times.append(f"split {split or 'compiled'}: launch "
-                         f"{launch_ms:.4f} ms, device {device_ms:.4f} ms")
-        log("soft-times", f"{card} | soft_bwd teapot {size}^2 batch "
-            f"{TEAPOT_BATCH}: counts {json.dumps(counts)}; "
-            + "; ".join(times))
+    # K6, K7 and K8 alone (utils/soft_work.py): each one's build, and its
+    # times at its compiled split and at each split tried; where their work
+    # falls.
+    for kernel in soft_work.SPLITS:
+        log("soft-times", f"{card} | {kernel}_kernel: " + json.dumps(
+            soft_work.kernel_report(kernels.build().log, f"{kernel}_kernel")))
+        for line in soft_work.kernel_times(kernel, dev):
+            log("soft-times", f"{card} | " + json.dumps(line))
+    for scene in ("teapot 256", "teapot 128", "fit 128"):
+        split_table = soft_work.scene_table(scene, dev)
+        size = int(scene.split()[-1])
+        log("soft-times", f"{scene}: counts " + json.dumps(
+            soft_work.pair_counts(split_table[0], size, size,
+                                  float(split_table[2][2]))))
 
     # Device time by kernel (torch.profiler) and the device's idle share.
     for label, fn, wall_ms in (
+            (f"soft render {TEAPOT_SIZE}^2", lambda: soft_mesh_renderer.render(
+                *scene_args, TEAPOT_SIZE, TEAPOT_SIZE), render_ms),
             (soft_label, lambda: soft_step(TEAPOT_SIZE), step_ms[soft_label]),
             (sil_label, lambda: soft_step(TEAPOT_SIZE, True),
              step_ms[sil_label])):
         by_name, device_ms, n_kernels = device_profile(fn, iters=10)
         log("soft-times", f"{card} | profile {label}: device kernel time "
-            f"{device_ms:.4f} ms per step in {n_kernels:.0f} kernels; idle "
+            f"{device_ms:.4f} ms per call in {n_kernels:.0f} kernels; idle "
             f"share {1.0 - device_ms / wall_ms:.3f} of the unprofiled "
             f"{wall_ms:.4f} ms; {kernel_device_ms(by_name)}")
 

@@ -31,7 +31,8 @@
 // chain is latency-bound, so what counts is how many warps run chains at
 // once and how long the longest sequence is.
 //
-// The work split. The grid is (ceil(W / 16), ceil(H / 16), B x kSplit):
+// The work split (soft_split.cuh; K6 runs the same). The grid is
+// (ceil(W / 16), ceil(H / 16), B x kSplit):
 // CTA s of a pixel block stages only the table rows t = s (mod kSplit), so
 // neighbouring triangle ids land in different CTAs and a busy block's
 // triangles spread over kSplit CTAs whatever the mesh's index order; all
@@ -57,7 +58,7 @@
 // gradients' last bits do too; every per-pair value keeps the plain
 // version's operation order (--fmad=false).
 
-#include "soft_common.cuh"
+#include "soft_split.cuh"
 
 namespace {
 
@@ -68,19 +69,9 @@ constexpr int kPaddedCols = 64;
 // CTAs per pixel block; each stages the rows of one residue mod kSplit.
 // Chosen from the device times at 4, 8 and 16 on the H100 (PERF.md).
 constexpr int kSplit = 8;
-constexpr int kWarps = kSoftThreads / 32;
-// A warp's item covers 16x2 pixels: one row pair of the block.
-constexpr int kRowPairs = kSoftBlockY / 2;
-static_assert(kSoftBlockX == 16 && kSoftBlockY % 2 == 0,
-              "a warp is one 16x2 row pair");
 // Lights whose gradients a CTA sums in shared memory; later ones go to
 // device memory directly.
 constexpr int kSharedLights = 256;
-// Rows a CTA tests per pass: all 256 threads cull, so a CTA's share of a
-// 2,464-row table (308 rows at kSplit 8) takes 2 passes, not 3. The slab
-// of kept rows is dynamic shared memory: 60,416 bytes.
-constexpr int kStageRows = kSoftThreads;
-constexpr int kSlabBytes = kStageRows * kCols * sizeof(float);
 
 __device__ __forceinline__ constexpr int grad_col(int i) {
   return i < 18 ? i : i + 8;
@@ -88,23 +79,6 @@ __device__ __forceinline__ constexpr int grad_col(int i) {
 
 __device__ __forceinline__ float sign_of(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-}
-
-// Reduce-scatter of t[0, 2 kHalf) over the warp: each step keeps half of
-// the columns (the upper half when the lane's bit kHalf / 2 is set), adds
-// the partner lane's copy of that half and sends it the other. From
-// kHalf = 32, lane l ends with the warp's totals of columns 2l and 2l + 1
-// in t[0] and t[1].
-template <int kHalf>
-__device__ __forceinline__ void reduce_scatter(float* t, int lane) {
-  const bool upper = (lane & (kHalf / 2)) != 0;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float send = upper ? t[i] : t[i + kHalf];
-    const float keep = upper ? t[i + kHalf] : t[i];
-    t[i] = keep + __shfl_xor_sync(kFullMask, send, kHalf / 2);
-  }
-  if constexpr (kHalf > 2) reduce_scatter<kHalf / 2>(t, lane);
 }
 
 __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
@@ -121,25 +95,19 @@ __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
     int num_tris, int num_lights, int width, int height, int full_height,
     int split) {
   extern __shared__ float slab[];  // kStageRows x kCols
-  __shared__ int kept_ids[kStageRows];
-  __shared__ int warp_kept[kStageRows / 32];
+  __shared__ SplitShared sh;
   // Per-pixel residuals of the block: rgb and sil = 1 - alpha; the
   // cotangent; m; 1 / (sum_w + bg). Neutral outside the image.
   __shared__ float4 s_rgbs[kSoftThreads];
   __shared__ float4 s_d[kSoftThreads];
   __shared__ float s_m[kSoftThreads];
   __shared__ float s_inv[kSoftThreads];
-  __shared__ float s_py[kSoftBlockY];
-  __shared__ int s_start[kStageRows];  // each staged row's first item
-  __shared__ int s_first[kStageRows];  // and its first row pair
-  __shared__ int s_warp_items[kWarps];
   __shared__ float s_acc[4 * kSharedLights + 2];  // dlights, dsigma, dgamma
 
   const int b = blockIdx.z / split;
   const int part = blockIdx.z - b * split;
   const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
   const int lane = tid % 32;
-  const int warp = tid / 32;
   const int x0 = blockIdx.x * kSoftBlockX;
   const int y0 = blockIdx.y * kSoftBlockY;
   const SoftParams p = load_params(params);
@@ -161,96 +129,45 @@ __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
   float dsig = 0.0f, dgam = 0.0f;  // this lane's sums over its pairs
   bool residuals_staged = false;
   for (int t0 = part; t0 < num_tris; t0 += kStageRows * split) {
-    const int n = min(kStageRows, (num_tris - t0 + split - 1) / split);
-    const int n_kept = stage_rows<kStageRows>(rows_b, t0, n, split, extent,
-                                              slab, kept_ids, warp_kept);
+    const int n_kept = stage_rows<kStageRows>(
+        rows_b, t0, split_pass_rows(t0, num_tris, split), split, extent,
+        slab, sh.kept_ids, sh.warp_kept);
     if (n_kept > 0 && !residuals_staged) {  // uniform over the block
       for (int i = tid; i < n_acc; i += kSoftThreads) s_acc[i] = 0.0f;
-      if (tid < kSoftBlockY) {
-        s_py[tid] = pixel_y(y0 + tid, p.row_off, full_height);
-      }
-      const int xr = x0 + tid % kSoftBlockX;
-      const int yr = y0 + tid / kSoftBlockX;
-      float4 rgbs = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
-      float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float m = 0.0f, inv_total = 0.0f;
-      if (xr < width && yr < height) {
-        const size_t pixel = (static_cast<size_t>(b) * height + yr) *
-                                 static_cast<size_t>(width) + xr;
-        const float4 c = rgba[pixel];
-        rgbs = make_float4(c.x, c.y, c.z, 1.0f - c.w);
-        d = d_rgba[pixel];
-        m = m_in[pixel];
-        const float bg = fmaxf(expf(kEps / p.gamma - m), kEps);
-        inv_total = 1.0f / (sumw_in[pixel] + bg);
-      }
-      s_rgbs[tid] = rgbs;
-      s_d[tid] = d;
-      s_m[tid] = m;
-      s_inv[tid] = inv_total;
-      __syncthreads();
+      stage_residuals(b, width, height, p.row_off, full_height, sh,
+                      [&](int t, long long pixel) {
+        float4 rgbs = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+        float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float m = 0.0f, inv_total = 0.0f;
+        if (pixel >= 0) {
+          const float4 c = rgba[pixel];
+          rgbs = make_float4(c.x, c.y, c.z, 1.0f - c.w);
+          d = d_rgba[pixel];
+          m = m_in[pixel];
+          const float bg = fmaxf(expf(kEps / p.gamma - m), kEps);
+          inv_total = 1.0f / (sumw_in[pixel] + bg);
+        }
+        s_rgbs[t] = rgbs;
+        s_d[t] = d;
+        s_m[t] = m;
+        s_inv[t] = inv_total;
+      });
       residuals_staged = true;
     }
     if (n_kept == 0) continue;  // uniform over the block
 
-    // The CTA's work is every (staged triangle, row pair its bbox rows
-    // touch) item, in triangle order, cut into kWarps equal runs: a warp
-    // takes one run, so a large triangle's row pairs spread over warps and
-    // a CTA with few triangles keeps its warps busy. Thread k counts row
-    // k's pairs (a contiguous range: py falls as the row grows); a scan
-    // gives each row its first item.
-    int n_pairs = 0, first_pair = 0;
-    if (tid < n_kept) {
-      const float* r = slab + tid * kCols;
-      int last_pair = -1;
-      first_pair = kRowPairs;
-      for (int pair = 0; 2 * pair < rows_here; ++pair) {
-        const float py_top = s_py[2 * pair];
-        const float py_bottom = s_py[min(2 * pair + 1, rows_here - 1)];
-        if (py_top >= r[24] && py_bottom <= r[25]) {
-          first_pair = min(first_pair, pair);
-          last_pair = pair;
-        }
-      }
-      n_pairs = max(last_pair - first_pair + 1, 0);
-    }
-    int items_to = n_pairs;  // inclusive scan over the warp
-#pragma unroll
-    for (int offset = 1; offset < 32; offset <<= 1) {
-      const int v = __shfl_up_sync(kFullMask, items_to, offset);
-      if (lane >= offset) items_to += v;
-    }
-    if (lane == 31) s_warp_items[warp] = items_to;
-    __syncthreads();
-    int n_items = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) s_start[tid] = n_items + items_to - n_pairs;
-      n_items += s_warp_items[w];
-    }
-    s_first[tid] = first_pair;
-    __syncthreads();
-
-    const int i0 = n_items * warp / kWarps;
-    const int i1 = n_items * (warp + 1) / kWarps;
-    int k = 0;  // the row of item i0: the last whose first item <= i0
-    for (int lo = 1, hi = n_kept - 1; lo <= hi;) {
-      const int mid = (lo + hi) / 2;
-      if (s_start[mid] <= i0) {
-        k = mid;
-        lo = mid + 1;
-      } else {
-        hi = mid - 1;
-      }
-    }
+    const int n_items = scan_row_pairs(slab, n_kept, rows_here, sh);
+    const WarpRun run = warp_run(n_items, n_kept, sh);
+    int k = run.k;
     float acc[kCols];  // this lane's column gradients of row k
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
     bool any_valid = false;  // uniform over the warp
-    for (int i = i0; i < i1; ++i) {  // uniform over the warp
+    for (int i = run.i0; i < run.i1; ++i) {  // uniform over the warp
       const float* r = slab + k * kCols;
-      const int row0 = 2 * (s_first[k] + i - s_start[k]);
+      const int row0 = item_row0(sh, k, i);
       const int pix = row0 * kSoftBlockX + lane;
-      const float py = s_py[row0 + pair_row];
+      const float py = sh.py[row0 + pair_row];
       SoftGeometry g;
       g.valid = false;
       if (x < width && row0 + pair_row < rows_here) {
@@ -402,17 +319,16 @@ __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
 
       // Row k's last item of this run: its 48 columns, summed over the
       // warp once, go to the table; then on to the next row with items.
-      if (i + 1 < i1 && (k + 1 >= n_kept || s_start[k + 1] > i + 1)) {
-        continue;
-      }
+      if (!row_ends(sh, k, i, run.i1, n_kept)) continue;
       if (any_valid) {
         float t[kPaddedCols];
 #pragma unroll
         for (int c = 0; c < kPaddedCols; ++c) {
           t[c] = c < kNumGradCols ? acc[grad_col(c)] : 0.0f;
         }
-        reduce_scatter<kPaddedCols / 2>(t, lane);
-        float* out = dtab_b + static_cast<size_t>(t0 + kept_ids[k]) * kCols;
+        reduce_scatter<kPaddedCols / 2, 16>(t, lane);
+        float* out =
+            dtab_b + static_cast<size_t>(t0 + sh.kept_ids[k]) * kCols;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int c = 2 * lane + j;
@@ -424,7 +340,7 @@ __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
       any_valid = false;
-      while (k + 1 < n_kept && s_start[k + 1] <= i + 1) ++k;
+      k = next_row(sh, k, i, n_kept);
     }
   }
   // Most CTAs stage no row (1,633 of 8,192 stage one on the 256x256

@@ -21,27 +21,38 @@
 // [B, T, 59] tables. The triangle rows (236 bytes each) are read by every
 // block that keeps them and stay in L2. What the measured times follow is
 // neither: it is the chain of dependent work on the few busy blocks (on
-// the 256x256 batch-4 teapot 208 of 1,024 pixel blocks hold a valid pair).
+// the 256x256 batch-4 teapot 208 of 1,024 pixel blocks hold a valid pair,
+// the busiest 191 triangles), and how many of those chains the card runs
+// at once.
 //
-// What the design does about it. Forward kernels (K5, K7) and K6: one
-// thread per pixel of a 16x16 block. 128 threads test 128 triangle rows
-// at a time against the block's pixel-centre extent (keep, and the bbox of
-// cols 22-25), compact the kept rows in index order with warp ballots and
-// stage them in shared memory (`stage_rows`); every thread then runs its
-// pixel against the staged rows only. The per-pixel bbox test uses the
-// same px, py and comparisons, so a culled triangle is one that no pixel
-// of the block would have found valid, and an invalid pair is an exact
-// no-op of the per-triangle updates (coverage 0 multiplies the silhouette
-// by exactly 1.0; the softmax state is left as it is). The cull changes no
-// output bit. There is no binning prepass and no per-pass triangle cap:
-// rows stream from device memory.
+// What the design does about it. Every kernel works on 16x16 pixel blocks
+// and culls a block's triangle rows with one test (`block_keeps`: keep,
+// and the bbox of cols 22-25 against the block's pixel-centre extent),
+// compacting the kept rows in index order with warp ballots (`cull_rows`;
+// `stage_rows` also copies them to shared memory). The per-pixel bbox test
+// uses the same px, py and comparisons, so a culled triangle is one that
+// no pixel of the block would have found valid, and an invalid pair is an
+// exact no-op of the per-triangle updates (coverage 0 multiplies the
+// silhouette by exactly 1.0; the softmax state is left as it is). The cull
+// changes no output bit. There is no binning prepass and no per-pass
+// triangle cap: rows stream from device memory.
 //
-// K8 (soft_bwd.cu) keeps the pixel blocks and the cull but splits each
-// block's triangles over kSplit CTAs: CTA s stages only the rows
-// t = s (mod kSplit) (`stage_rows`' row stride, 256 rows a pass), and
-// inside it the (staged triangle, 16x2 row pair its bbox touches) items
-// are cut into one equal run per warp, one pixel per lane. A busy block's
-// work so spreads over kSplit x 8 warps instead of queueing on 8.
+// - K5 (soft_sil_fwd.cu): one CTA per block, one thread per pixel running
+//   every staged row in index order.
+// - K6 and K8 (soft_sil_bwd.cu, soft_bwd.cu; the split in soft_split.cuh):
+//   kSplit CTAs per block, CTA s staging only the rows t = s (mod kSplit),
+//   256 rows a pass; inside a CTA the (staged triangle, 16x2 row pair its
+//   bbox touches) items are cut into one equal run per warp, one pixel per
+//   lane, and each triangle's column sums are reduced over the warp once.
+//   A busy block's work so spreads over kSplit x 8 warps instead of
+//   queueing on 8; their sums need no order.
+// - K7 (soft_fwd.cu): the fold of each pixel is ordered (the online
+//   softmax, and alpha bit-identical to K5's), so a thread-block cluster of
+//   kSplit CTAs splits the evaluation of the pairs (geometry and shading)
+//   and each pixel's owner folds the records the cluster wrote, in index
+//   order, through distributed shared memory. A busy block holds kSplit
+//   CTA slots for all its rounds, so the split pays where the busy blocks
+//   times kSplit about fit the card's CTA slots.
 //
 // Lights are read from device memory through the read-only cache; no
 // kernel caps their count.
@@ -109,46 +120,86 @@ __device__ __forceinline__ BlockExtent block_extent(int width, int height,
       pixel_y(y0, row_off, full_height)};
 }
 
-// Tests rows t0, t0 + stride, ..., t0 + (n - 1) stride (n <= kRows) of
-// one image's table against the block and copies the kept ones, in index
-// order, to `slab` (kRows x kCols); kept_ids[k] (kRows) is the k-th kept
-// row's offset from t0; warp_kept holds kRows / 32 counts. Returns the
-// kept rows' count. Every thread of the block must call it; it starts and
-// ends with a block barrier.
+// Whether table row r can hold a valid pair for a pixel of the block: it
+// is kept and its blur-inflated bbox meets the block's pixel-centre extent.
+// The per-pixel bbox test of soft_geometry uses the same comparisons, so a
+// row this rejects is one that no pixel of the block finds valid.
+__device__ __forceinline__ bool block_keeps(const float* r,
+                                            const BlockExtent& e) {
+  const float keep = r[21];  // all five loads in flight at once
+  const float x_lo = r[22], x_hi = r[23], y_lo = r[24], y_hi = r[25];
+  return keep > 0.0f && x_hi >= e.px_lo && x_lo <= e.px_hi &&
+         y_hi >= e.py_lo && y_lo <= e.py_hi;
+}
+
+// Tests rows t0 + i stride for i < n (n <= kPerThread x kRows; thread
+// tid tests i = h kRows + tid for h < kPerThread) of one image's table
+// against the block and writes the kept ones' offsets i stride from t0, in
+// index order, to kept_ids (kPerThread x kRows); warp_kept holds
+// kPerThread x kRows / 32 counts. Returns the kept rows' count. Every
+// thread of the block must call it; it starts and ends with a block
+// barrier.
+template <int kRows = kSlabRows, int kPerThread = 1>
+__device__ __forceinline__ int cull_rows(const float* __restrict__ rows_b,
+                                         int t0, int n, int stride,
+                                         const BlockExtent& e, int* kept_ids,
+                                         int* warp_kept) {
+  static_assert(kRows % 32 == 0 && kRows <= kSoftThreads,
+                "one culling thread per tested row, in whole warps");
+  constexpr int kWarpsCulling = kRows / 32;
+  const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  __syncthreads();  // the previous pass's kept rows have been consumed
+  bool keep[kPerThread];
+  unsigned kept_mask[kPerThread];
+#pragma unroll
+  for (int h = 0; h < kPerThread; ++h) {
+    const int i = h * kRows + tid;
+    const float* r = rows_b + static_cast<size_t>(t0 + i * stride) * kCols;
+    keep[h] = tid < kRows && i < n && block_keeps(r, e);
+  }
+  if (tid < kRows) {  // whole warps
+#pragma unroll
+    for (int h = 0; h < kPerThread; ++h) {
+      kept_mask[h] = __ballot_sync(kFullMask, keep[h]);
+      if (lane == 0) {
+        warp_kept[h * kWarpsCulling + warp] = __popc(kept_mask[h]);
+      }
+    }
+  }
+  __syncthreads();
+  int n_kept = 0;
+  int slot[kPerThread] = {};
+  for (int w = 0; w < kPerThread * kWarpsCulling; ++w) {
+#pragma unroll
+    for (int h = 0; h < kPerThread; ++h) {
+      if (w < h * kWarpsCulling + warp) slot[h] += warp_kept[w];
+    }
+    n_kept += warp_kept[w];
+  }
+#pragma unroll
+  for (int h = 0; h < kPerThread; ++h) {
+    if (keep[h]) {
+      kept_ids[slot[h] + __popc(kept_mask[h] & ((1u << lane) - 1u))] =
+          (h * kRows + tid) * stride;
+    }
+  }
+  __syncthreads();
+  return n_kept;
+}
+
+// cull_rows, then copies the kept rows, in index order, to `slab`
+// (kRows x kCols). Returns the kept rows' count; ends with a block
+// barrier.
 template <int kRows = kSlabRows>
 __device__ __forceinline__ int stage_rows(const float* __restrict__ rows_b,
                                           int t0, int n, int stride,
                                           const BlockExtent& e, float* slab,
                                           int* kept_ids, int* warp_kept) {
-  static_assert(kRows % 32 == 0 && kRows <= kSoftThreads,
-                "one culling thread per tested row, in whole warps");
   const int tid = threadIdx.y * kSoftBlockX + threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  __syncthreads();  // the previous slab has been consumed
-  bool keep = false;
-  unsigned kept_mask = 0;
-  if (tid < kRows) {  // whole warps
-    if (tid < n) {
-      const float* r =
-          rows_b + static_cast<size_t>(t0 + tid * stride) * kCols;
-      keep = r[21] > 0.0f && r[23] >= e.px_lo && r[22] <= e.px_hi &&
-             r[25] >= e.py_lo && r[24] <= e.py_hi;
-    }
-    kept_mask = __ballot_sync(kFullMask, keep);
-    if (lane == 0) warp_kept[warp] = __popc(kept_mask);
-  }
-  __syncthreads();
-  int n_kept = 0;
-  int slot = 0;
-  for (int w = 0; w < kRows / 32; ++w) {
-    if (w < warp) slot += warp_kept[w];
-    n_kept += warp_kept[w];
-  }
-  if (keep) {
-    kept_ids[slot + __popc(kept_mask & ((1u << lane) - 1u))] = tid * stride;
-  }
-  __syncthreads();
+  const int n_kept =
+      cull_rows<kRows>(rows_b, t0, n, stride, e, kept_ids, warp_kept);
   for (int i = tid; i < n_kept * kCols; i += kSoftThreads) {
     const int k = i / kCols;
     slab[i] = rows_b[static_cast<size_t>(t0 + kept_ids[k]) * kCols +

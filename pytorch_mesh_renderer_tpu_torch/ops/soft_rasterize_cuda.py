@@ -431,11 +431,15 @@ def _stream(device):
 
 
 def launch_soft_fwd(table, lights, params, image_width, image_height,
-                    full_height):
+                    full_height, split=0):
     """Launch K7; returns (rgba [B, H, W, 4], m [B, H, W], sum_w [B, H, W]).
 
     table [B, T, 59], lights [B, L, 4] (16-byte aligned) and params [4]
-    (make_params): contiguous f32 tensors on one CUDA device.
+    (make_params): contiguous f32 tensors on one CUDA device. split: CTAs
+    per pixel block, one thread-block cluster (1, 2, 4 or 8); 0, the
+    default, takes the kernel's compiled kSplit. Other values serve only to
+    measure that choice (chip_smoke.py, utils/soft_work.py). The outputs do
+    not depend on it.
     """
     global FWD_LAUNCHES
     device = table.device
@@ -454,7 +458,7 @@ def launch_soft_fwd(table, lights, params, image_width, image_height,
             table.data_ptr(), lights.data_ptr(), params.data_ptr(),
             rgba.data_ptr(), run_max.data_ptr(), sum_w.data_ptr(), batch,
             n_tri, lights.shape[1], image_width, image_height, full_height,
-            _stream(device))
+            int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_fwd launch")
     FWD_LAUNCHES += 1
     return rgba, run_max, sum_w
@@ -527,11 +531,12 @@ def launch_sil_fwd(table, params, image_width, image_height, full_height):
     return alpha
 
 
-def launch_sil_bwd(table, params, alpha, d_alpha, full_height):
+def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0):
     """Launch K6; returns (dtable [B, T, 59], dsigma [B] per image).
 
     alpha is K5's output and d_alpha [B, H, W] its cotangent; every operand
-    a contiguous f32 tensor on one CUDA device.
+    a contiguous f32 tensor on one CUDA device. split: CTAs per pixel
+    block, as launch_soft_bwd's.
     """
     global SIL_BWD_LAUNCHES
     device = table.device
@@ -552,7 +557,7 @@ def launch_sil_bwd(table, params, alpha, d_alpha, full_height):
         error = lib.soft_sil_bwd(
             table.data_ptr(), params.data_ptr(), alpha.data_ptr(),
             d_alpha.data_ptr(), dtable.data_ptr(), dsigma.data_ptr(), batch,
-            n_tri, width, height, full_height, _stream(device))
+            n_tri, width, height, full_height, int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_sil_bwd launch")
     SIL_BWD_LAUNCHES += 1
     return dtable, dsigma

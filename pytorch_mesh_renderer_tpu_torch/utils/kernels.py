@@ -134,11 +134,14 @@ def load_library() -> ctypes.CDLL:
     lib.rasterize_bary_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32,
                                                                ptr]
     lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-    lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-    lib.soft_bwd_blocks_per_sm.argtypes = []
     lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    occupancy = (lib.soft_bwd_blocks_per_sm, lib.soft_sil_bwd_blocks_per_sm,
+                 lib.soft_fwd_blocks_per_sm)
+    for entry in occupancy:
+        entry.argtypes = []
     lib.mxu_edge_fma.argtypes = [ptr] * 3 + [i32] * 3 + [f32, ptr]
     lib.mxu_edge_tc.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.mxu_full_prod.argtypes = [ptr] * 7 + [i32] * 3 + [f32, ptr]
@@ -146,10 +149,10 @@ def load_library() -> ctypes.CDLL:
     lib.patch_eval.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
     for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
                   lib.rasterize_bary_fwd, lib.rasterize_bary_bwd,
-                  lib.soft_fwd, lib.soft_bwd, lib.soft_bwd_blocks_per_sm,
-                  lib.soft_sil_fwd,
+                  lib.soft_fwd, lib.soft_bwd, lib.soft_sil_fwd,
                   lib.soft_sil_bwd, lib.mxu_edge_fma, lib.mxu_edge_tc,
-                  lib.mxu_full_prod, lib.mxu_full_tc, lib.patch_eval):
+                  lib.mxu_full_prod, lib.mxu_full_tc, lib.patch_eval,
+                  *occupancy):
         entry.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p

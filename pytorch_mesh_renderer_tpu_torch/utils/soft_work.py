@@ -1,25 +1,32 @@
-"""Where the soft backward kernel K8's work falls, and what it costs.
+"""Where the split soft kernels' work falls, and what it costs: K6
+(csrc/soft_sil_bwd.cu), K7 (csrc/soft_fwd.cu) and K8 (csrc/soft_bwd.cu).
 
     python -m pytorch_mesh_renderer_tpu_torch.utils.soft_work   # CUDA host
 
 `pair_counts` counts, on any device, how a packed table's (pixel,
-triangle) pairs fall on K8's 16x16 pixel blocks and their 16x2-pixel
-warps: which blocks hold a valid pair, how many (warp, triangle) and
-(block, triangle) items there are, how many rows each block stages, and
-the longest sequence one warp runs, before and after the triangles of a
-block are split over CTAs by row id mod `split` (csrc/soft_bwd.cu). A
-pair is valid as in the kernels' geometry phase without the depth test:
-the triangle is kept, the pixel centre lies in its blur-inflated bbox,
-and inside the triangle or within the blur of its nearest edge.
+triangle) pairs fall on the kernels' 16x16 pixel blocks and their
+16x2-pixel warps: which blocks hold a valid pair, how many (warp,
+triangle) and (block, triangle) items there are, how many rows each block
+stages, and the longest sequence one warp runs, before and after the
+triangles of a block are split over CTAs by row id mod `split`
+(csrc/soft_split.cuh). A pair is valid as in the kernels' geometry phase
+without the depth test: the triangle is kept, the pixel centre lies in its
+blur-inflated bbox, and inside the triangle or within the blur of its
+nearest edge.
 
 `teapot_table` packs the soft teapot of chip_smoke.py (bench.py's scene,
 CCW, sigma 1e-5, gamma 1e-4, blur 0.01) at a square size, `fit_table` the
-cow fit's first silhouette step (128x128, 4 views);
-`kernel_report` reads soft_bwd_kernel's registers, spills and shared
-memory from the build log and its resident CTAs per SM; `time_soft_bwd`
-times K8 by CUDA events and torch.profiler. `main` prints all of them at
-256x256 and 128x128, batch 4, and the fit's counts; chip_smoke.py calls
-the same functions.
+cow fit's first silhouette step (128x128, 4 views); `kernel_report` reads
+a kernel's registers, spills and shared memory from the build log and its
+resident CTAs per SM; `time_kernel` times one kernel (K6, K7 or K8) by
+CUDA events and torch.profiler at a split. `main` prints, per kernel, its
+report and its times at its compiled split and at each split tried (K6 at
+the teapot 256x256 batch 4 and the fit's shape, K7 and K8 at the teapot
+256x256 and 128x128 batch 4), then the counts; `--save-k7` and
+`--check-k7` hold two builds of K7 to the same outputs bit for bit.
+chip_smoke.py calls the same functions. To compare with an older commit,
+unpack it into `.chipcheck/` (git-ignored), copy this file into it and run
+both in one call: a launcher without a split is timed at its own.
 """
 
 from __future__ import annotations
@@ -36,6 +43,16 @@ WARP_ROWS = 2  # a warp covers 16x2 pixels
 WARPS = BLOCK // WARP_ROWS
 BLUR = 0.01  # the soft renderer's default blur radius
 SIGMA, GAMMA = 1e-5, 1e-4
+FIT_SIGMA = 3e-5  # the cow fit's
+# The splits of a pixel block's triangles tried per kernel (CTAs per
+# block), each kernel's launcher, and the scenes it is timed on.
+SPLITS = {"soft_sil_bwd": (4, 8, 16), "soft_fwd": (4, 8),
+          "soft_bwd": (4, 8, 16)}
+LAUNCHERS = {"soft_sil_bwd": "launch_sil_bwd", "soft_fwd": "launch_soft_fwd",
+             "soft_bwd": "launch_soft_bwd"}
+SCENES = {"soft_sil_bwd": ("teapot 256", "fit 128"),
+          "soft_fwd": ("teapot 256", "teapot 128"),
+          "soft_bwd": ("teapot 256", "teapot 128")}
 
 
 def pair_counts(table, width, height, sq_blur, split=8, row_offset=0,
@@ -155,9 +172,10 @@ def teapot_table(size, device, batch=4):
 
 
 def fit_table(device, size=128, views=4):
-    """[views, 1152, 59] table of the flagship cow fit's first step
-    (chip_smoke.py's fit phase: a sphere of radius 0.5 at resolution 24
-    seen from `views` eyes around it at size x size), for K5/K6's counts."""
+    """(table [views, 1152, 59], lights [views, 0, 4], params [4]) of the
+    flagship cow fit's first step (chip_smoke.py's fit phase: a sphere of
+    radius 0.5 at resolution 24 seen from `views` eyes around it at size x
+    size, sigma 3e-5), the silhouette kernels' shape."""
     from ..models import shapes
     from ..ops import soft_rasterize_cuda as sc
     from . import test_utils
@@ -169,18 +187,20 @@ def fit_table(device, size=128, views=4):
                         dtype=torch.float32, device=device)
     world = vertices.to(device)[None].expand(views, -1, -1)
     zeros = torch.zeros_like(world)
-    return sc.pack_triangle_data(
+    table = sc.pack_triangle_data(
         test_utils.clip_from_eye(world, eyes, size, size), tris.to(device),
         zeros, zeros, zeros, BLUR)
+    return (table, torch.zeros(views, 0, 4, device=device),
+            sc.make_params(FIT_SIGMA, 1.0, BLUR, 0, device))
 
 
 def kernel_report(log, name="soft_bwd_kernel"):
     """{registers, stack, spill_stores, spill_loads, smem} of the kernel
     whose mangled name holds `name`, from an `nvcc -Xptxas -v` log, and
     `blocks_per_sm`: cudaOccupancyMaxActiveBlocksPerMultiprocessor where
-    the library exports soft_bwd_blocks_per_sm, else Hopper's occupancy
-    rule on the registers and shared memory (`occupancy_source` says
-    which)."""
+    the library exports `<kernel>_blocks_per_sm` (the name without
+    `_kernel`), else Hopper's occupancy rule on the registers and shared
+    memory (`occupancy_source` says which)."""
     from . import kernels
 
     report = {}
@@ -204,8 +224,9 @@ def kernel_report(log, name="soft_bwd_kernel"):
     if "registers" not in report:
         raise RuntimeError(f"no ptxas report for {name} in the build log")
     lib = kernels.load_library()
-    if hasattr(lib, "soft_bwd_blocks_per_sm"):
-        report["blocks_per_sm"] = lib.soft_bwd_blocks_per_sm()
+    entry = name.removesuffix("_kernel") + "_blocks_per_sm"
+    if hasattr(lib, entry):
+        report["blocks_per_sm"] = getattr(lib, entry)()
         report["occupancy_source"] = "cudaOccupancy"
     else:
         report["blocks_per_sm"] = occupancy_rule(report["registers"],
@@ -236,36 +257,119 @@ def forward_residuals(table, lights, params, size):
     return k7, d_rgba
 
 
-def time_soft_bwd(table, lights, params, size, split=0, iters=20):
-    """(launch ms by CUDA events, soft_bwd_kernel device ms by
-    torch.profiler) of K8 at size x size; split 0 is the kernel's own.
-    Where the profiler records no kernel, the device ms are those of the
-    whole launch by CUDA events (common.device_profile)."""
-    from ..microbench import common
+def kernel_launch(kernel, table, lights, params, size):
+    """A function launch(**split) that launches `kernel` (a key of SPLITS)
+    once on the scene at size x size; the residuals a backward kernel reads
+    are made first (K7's for K8, K5's alpha for K6, seeded cotangents)."""
     from ..ops import soft_rasterize_cuda as sc
 
+    if kernel == "soft_fwd":
+        return lambda **split: sc.launch_soft_fwd(table, lights, params,
+                                                  size, size, size, **split)
     (rgba, run_max, sum_w), d_rgba = forward_residuals(table, lights, params,
                                                        size)
+    if kernel == "soft_bwd":
+        return lambda **split: sc.launch_soft_bwd(
+            table, lights, params, rgba, run_max, sum_w, d_rgba, size,
+            **split)
+    if kernel == "soft_sil_bwd":
+        alpha = sc.launch_sil_fwd(table, params, size, size, size)
+        d_alpha = d_rgba[..., 3].contiguous()
+        return lambda **split: sc.launch_sil_bwd(table, params, alpha,
+                                                 d_alpha, size, **split)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def takes_split(kernel):
+    """Whether this tree's launcher of `kernel` takes a split."""
+    from ..ops import soft_rasterize_cuda as sc
+
+    launcher = getattr(sc, LAUNCHERS[kernel])
+    return "split" in inspect.signature(launcher).parameters
+
+
+def time_kernel(kernel, table, lights, params, size, split=0, iters=20):
+    """(launch ms by CUDA events, `<kernel>_kernel` device ms by
+    torch.profiler) of `kernel` (a key of SPLITS) at size x size; split 0
+    is the kernel's own. Where the profiler records no kernel, the device
+    ms are those of the whole launch by CUDA events
+    (common.device_profile)."""
+    from ..microbench import common
+
+    launch = kernel_launch(kernel, table, lights, params, size)
     extra = {"split": split} if split else {}
 
-    def launch():
-        return sc.launch_soft_bwd(table, lights, params, rgba, run_max,
-                                  sum_w, d_rgba, size, **extra)
+    def run():
+        return launch(**extra)
 
-    launch_ms = common.wall_ms(launch, table.device, iters)
-    by_name, total, _ = common.device_profile(launch, iters=10)
+    launch_ms = common.wall_ms(run, table.device, iters)
+    by_name, total, _ = common.device_profile(run, iters=10)
     device = (total if common.EVENTS_ONLY in by_name else
               sum(t for name, t in by_name.items()
-                  if "soft_bwd_kernel" in name))
+                  if f"{kernel}_kernel" in name))
     return launch_ms, device
 
 
-def main():
+def scene_table(scene, device):
+    """(table, lights, params) of a scene of SCENES: "teapot <size>" (batch
+    4) or "fit 128"."""
+    if scene == "fit 128":
+        return fit_table(device)
+    return teapot_table(int(scene.split()[-1]), device)
+
+
+def kernel_times(kernel, device):
+    """[{scene, batch, triangles, launch_and_device_ms}] of `kernel` on each
+    of its SCENES, at its compiled split and at each split tried
+    (time_kernel's pair per split)."""
+    splits = (0,) + (SPLITS[kernel] if takes_split(kernel) else ())
+    lines = []
+    for scene in SCENES[kernel]:
+        table, lights, params = scene_table(scene, device)
+        size = int(scene.split()[-1])
+        times = {f"split {s or 'compiled'}": time_kernel(
+            kernel, table, lights, params, size, s) for s in splits}
+        lines.append({"kernel": kernel, "scene": scene,
+                      "batch": table.shape[0], "triangles": table.shape[1],
+                      "launch_and_device_ms": times})
+    return lines
+
+
+def k7_outputs(device):
+    """K7's (rgba, m, sum_w) on the CPU for chip_smoke.py's phase 8 scenes
+    (test_utils.SOFT_SCENES and SOFT_EDGE_SCENES) and the teapot at 256x256
+    batch 4, the teapot packed on the CPU (on the card its vertex normals
+    sum by atomics), keyed by scene name: what two builds of K7 must give
+    bit for bit."""
+    from ..ops import soft_rasterize_cuda as sc
+    from . import test_utils
+
+    scenes = {name: test_utils.soft_scene(name, device)[:5]
+              for name in test_utils.SOFT_SCENES + test_utils.SOFT_EDGE_SCENES}
+    scenes["teapot"] = tuple(x.to(device) for x in teapot_table(
+        256, torch.device("cpu"))) + (256, 256)
+    outputs = {}
+    for name, (table, lights, params, width, height) in scenes.items():
+        outputs[name] = [t.cpu() for t in sc.launch_soft_fwd(
+            table, lights, params, width, height, height)]
+    return outputs
+
+
+def main(argv=None):
+    import argparse
     import subprocess
 
-    from ..ops import soft_rasterize_cuda as sc
     from . import kernels
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels", nargs="+", default=list(SPLITS),
+                        choices=list(SPLITS), help="kernels to time")
+    parser.add_argument("--save-k7", metavar="FILE",
+                        help="save K7's outputs (k7_outputs) to FILE")
+    parser.add_argument("--check-k7", metavar="FILE",
+                        help="fail unless K7's outputs equal FILE's bit "
+                        "for bit")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("soft_work: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -274,21 +378,30 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    print(json.dumps({"soft_bwd_kernel": kernel_report(kernels.build().log)}),
-          flush=True)
-    splits = ((0, 4, 8, 16) if "split" in inspect.signature(
-        sc.launch_soft_bwd).parameters else (0,))
-    for size in (256, 128):
-        table, lights, params = teapot_table(size, dev)
-        counts = pair_counts(table, size, size, float(np.float32(BLUR) ** 2))
-        times = {f"split {s or 'default'}": time_soft_bwd(
-            table, lights, params, size, s) for s in splits}
-        print(json.dumps({"size": size, "batch": table.shape[0],
-                          "triangles": table.shape[1], "counts": counts,
-                          "launch_and_device_ms": times}), flush=True)
-    print(json.dumps({"cow fit 128x128 x 4 views": pair_counts(
-        fit_table(dev), 128, 128, float(np.float32(BLUR) ** 2))}),
-        flush=True)
+    log = kernels.build().log
+    if args.save_k7 or args.check_k7:
+        outputs = k7_outputs(dev)
+        if args.save_k7:
+            torch.save(outputs, args.save_k7)
+        if args.check_k7:
+            want = torch.load(args.check_k7)
+            equal = {name: all(torch.equal(a, b) for a, b in
+                               zip(outputs[name], want[name]))
+                     for name in want}
+            print(json.dumps({"k7 outputs equal bit for bit": equal}),
+                  flush=True)
+            if not all(equal.values()):
+                raise SystemExit("soft_work: K7's outputs differ")
+    for kernel in args.kernels:
+        print(json.dumps({f"{kernel}_kernel": kernel_report(
+            log, f"{kernel}_kernel")}), flush=True)
+        for line in kernel_times(kernel, dev):
+            print(json.dumps(line), flush=True)
+    for scene in ("teapot 256", "teapot 128", "fit 128"):
+        table = scene_table(scene, dev)[0]
+        size = int(scene.split()[-1])
+        print(json.dumps({scene: pair_counts(
+            table, size, size, float(np.float32(BLUR) ** 2))}), flush=True)
     print(card, flush=True)
 
 

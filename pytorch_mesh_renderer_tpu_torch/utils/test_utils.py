@@ -432,20 +432,42 @@ def grad_errors(label, kernel, plain, rtol, groups=None):
     return out
 
 
-def compare_soft_forward(scene, row_offset=0, full_height=None):
+def soft_splits(kernel):
+    """0 (the compiled split) and each split of a pixel block that
+    utils/soft_work.py tries for `kernel` ("soft_sil_bwd", "soft_fwd")."""
+    from . import soft_work
+
+    return (0,) + soft_work.SPLITS[kernel]
+
+
+def _split(split):
+    """A launcher's split keyword: none for 0, the kernel's own."""
+    return {"split": split} if split else {}
+
+
+def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,)):
     """K7 and K5 against the plain forward on one scene (CUDA tensors).
 
     Rows [row_offset, row_offset + scene.height) of a full_height-row image.
-    Raises AssertionError past a gate or if K5's alpha differs from K7's in
-    any bit. Returns ((rgba, run_max, sum_w) of K7, alpha of K5, errors):
-    errors maps a kernel name to [(label, max abs error, max |plain|)].
+    K7 runs at each of `splits` (clusters of CTAs per pixel block; 0 is its
+    compiled one), and every split must give the first's outputs bit for
+    bit. Raises AssertionError past a gate or if K5's alpha differs from
+    K7's in any bit. Returns ((rgba, run_max, sum_w) of K7 at splits[0],
+    alpha of K5, errors): errors maps a kernel name to [(label, max abs
+    error, max |plain|)].
     """
     from ..ops import soft_rasterize_cuda as sc
 
     table, lights, params, width, height = scene[:5]
     full_height = full_height or height
     k7 = sc.launch_soft_fwd(table, lights, params, width, height,
-                            full_height)
+                            full_height, **_split(splits[0]))
+    for split in splits[1:]:
+        other = sc.launch_soft_fwd(table, lights, params, width, height,
+                                   full_height, **_split(split))
+        if not all(torch.equal(a, b) for a, b in zip(other, k7)):
+            raise AssertionError(f"soft_fwd at split {split} differs from "
+                                 f"split {splits[0]}")
     alpha = sc.launch_sil_fwd(table, params, width, height, full_height)
     rgb, plain_alpha, _, _ = sc.soft_forward_torch_packed(
         table, lights, params[0], params[1], params[2], height, width,
@@ -475,13 +497,15 @@ def compare_soft_forward(scene, row_offset=0, full_height=None):
 
 
 def compare_soft_backward(scene, k7, alpha, d_rgba, row_offset=0,
-                          full_height=None):
+                          full_height=None, sil_splits=(0,)):
     """K8 and K6 against the plain backward on one scene, under the
     cotangent d_rgba [B, H, W, 4] (K6 takes its alpha part); k7 and alpha
-    are compare_soft_forward's. Every tensor is gated within SOFT_GRAD_RTOL
-    of its max |value| (d/dgamma within SOFT_DGAMMA_RTOL), the table
-    gradients per SOFT_DTABLE_GROUPS group. Returns (dtable of K8, dtable
-    of K6, errors) with errors as compare_soft_forward's."""
+    are compare_soft_forward's. K6 runs at each of `sil_splits` (CTAs per
+    pixel block; 0 is its compiled one). Every tensor is gated within
+    SOFT_GRAD_RTOL of its max |value| (d/dgamma within SOFT_DGAMMA_RTOL),
+    the table gradients per SOFT_DTABLE_GROUPS group. Returns (dtable of
+    K8, dtable of K6 at sil_splits[0], errors) with errors as
+    compare_soft_forward's."""
     from ..ops import soft_rasterize_cuda as sc
 
     table, lights, params, width, height = scene[:5]
@@ -489,8 +513,9 @@ def compare_soft_backward(scene, k7, alpha, d_rgba, row_offset=0,
     d_alpha = d_rgba[..., 3].contiguous()
     dtable, dlights, dparams = sc.launch_soft_bwd(table, lights, params,
                                                   *k7, d_rgba, full_height)
-    sil_dtable, sil_dsigma = sc.launch_sil_bwd(table, params, alpha,
-                                               d_alpha, full_height)
+    sil_grads = [sc.launch_sil_bwd(table, params, alpha, d_alpha,
+                                   full_height, **_split(split))
+                 for split in sil_splits]
     plain = sc.soft_backward_torch_packed(
         table, lights, params[0], params[1], params[2], height, width,
         row_offset, full_height, d_rgba, scene.triangle_chunk)
@@ -509,7 +534,11 @@ def compare_soft_backward(scene, k7, alpha, d_rgba, row_offset=0,
     if scene.depth_matters:
         bwd += grad_errors("dgamma", dparams[:, 1].sum(), plain[3],
                            SOFT_DGAMMA_RTOL)
-    sil = (grad_errors("dtable", sil_dtable, plain_sil[0], rtol,
-                       SOFT_DTABLE_GROUPS)
-           + grad_errors("dsigma", sil_dsigma.sum(), plain_sil[1], rtol))
-    return dtable, sil_dtable, {"soft_bwd": bwd, "soft_sil_bwd": sil}
+    sil = []
+    for split, (sil_dtable, sil_dsigma) in zip(sil_splits, sil_grads):
+        label = f" split {split}" if len(sil_splits) > 1 else ""
+        sil += (grad_errors("dtable" + label, sil_dtable, plain_sil[0], rtol,
+                            SOFT_DTABLE_GROUPS)
+                + grad_errors("dsigma" + label, sil_dsigma.sum(),
+                              plain_sil[1], rtol))
+    return dtable, sil_grads[0][0], {"soft_bwd": bwd, "soft_sil_bwd": sil}

@@ -400,49 +400,70 @@ def test_soft_kernels_match_plain_versions_at_k8_edges(dev, scene):
     """K7, K5, K8 and K6 against their plain versions at 65 and at 0
     lights, on a quad of two triangles filling a 256x256 frame, and on a
     batch whose second image holds no valid pair: that image is background
-    and its table gradient exactly 0."""
+    and its table gradient exactly 0. K7 and K6 run at each split of a
+    pixel block tried, each held to the gates; K7 gives the same outputs
+    at every split, and its alpha equals K5's bit for bit."""
     soft_scene = test_utils.soft_scene(scene, dev)
     n_lights = {"random65": 65, "random0": 0}
     assert soft_scene.lights.shape[1] == n_lights.get(scene, 3 if scene ==
                                                       "empty_image" else 2)
+    sil_splits = test_utils.soft_splits("soft_sil_bwd")
+    fwd_splits = test_utils.soft_splits("soft_fwd")
     before = _soft_launches()
-    k7, alpha, _ = test_utils.compare_soft_forward(soft_scene)
+    k7, alpha, _ = test_utils.compare_soft_forward(soft_scene,
+                                                   splits=fwd_splits)
     d_rgba = test_utils.soft_cotangents(soft_scene.table.shape[0],
                                         soft_scene.height, soft_scene.width,
                                         dev)
-    dtable, _, errors = test_utils.compare_soft_backward(soft_scene, k7,
-                                                         alpha, d_rgba)
-    assert _soft_launches() == tuple(b + 1 for b in before)
+    dtable, _, errors = test_utils.compare_soft_backward(
+        soft_scene, k7, alpha, d_rgba, sil_splits=sil_splits)
+    assert _soft_launches() == (before[0] + len(fwd_splits), before[1] + 1,
+                                before[2] + 1, before[3] + len(sil_splits))
     assert float(alpha[0].max()) > 0.5
     assert any(scale > 0.0 for label, _, scale in errors["soft_bwd"]
                if "dtable" in label)
     if scene == "empty_image":
         assert torch.equal(k7[0][1], torch.zeros_like(k7[0][1]))
         assert torch.equal(dtable[1], torch.zeros_like(dtable[1]))
+        d_alpha = d_rgba[..., 3].contiguous()
+        for split in sil_splits:
+            sil_dtable, _ = sc.launch_sil_bwd(
+                soft_scene.table, soft_scene.params, alpha, d_alpha,
+                soft_scene.height, split=split)
+            assert torch.equal(sil_dtable[1], torch.zeros_like(sil_dtable[1]))
+            assert bool(sil_dtable[0].abs().sum() > 0.0)
 
 
 def test_soft_backward_row_strips_on_the_full_frame_quad(dev):
-    """K8 on row strips whose offsets (100, 164) cut pixel blocks, each
-    strip against the plain version at its row offset; the strips' forward
-    rows equal the full frame's and their table gradients sum to its."""
+    """K8 and K6 (at each split tried) on row strips whose offsets (100,
+    164) cut pixel blocks, each strip against the plain version at its row
+    offset; the strips' forward rows (K7 at each split tried) equal the
+    full frame's and their table gradients sum to its."""
+    sil_splits = test_utils.soft_splits("soft_sil_bwd")
+    fwd_splits = test_utils.soft_splits("soft_fwd")
     full = test_utils.soft_scene("quad", dev)
-    k7, alpha, _ = test_utils.compare_soft_forward(full)
+    k7, alpha, _ = test_utils.compare_soft_forward(full, splits=fwd_splits)
     d_rgba = test_utils.soft_cotangents(1, 256, 256, dev, seed=9)
-    full_dtable = test_utils.compare_soft_backward(full, k7, alpha,
-                                                   d_rgba)[0]
-    dtables = []
+    full_dtable, full_sil_dtable, _ = test_utils.compare_soft_backward(
+        full, k7, alpha, d_rgba, sil_splits=sil_splits)
+    dtables, sil_dtables = [], []
     for lo, hi in ((0, 100), (100, 164), (164, 256)):
         strip = full._replace(height=hi - lo, params=sc.make_params(
             full.params[0], full.params[1], test_utils.SOFT_BLUR, lo, dev))
         strip_k7, strip_alpha, _ = test_utils.compare_soft_forward(
-            strip, lo, 256)
+            strip, lo, 256, fwd_splits)
         for s, f in zip(strip_k7, k7):
             assert torch.equal(s, f[:, lo:hi])
-        dtables.append(test_utils.compare_soft_backward(
+        dtable, sil_dtable, _ = test_utils.compare_soft_backward(
             strip, strip_k7, strip_alpha, d_rgba[:, lo:hi].contiguous(), lo,
-            256)[0])
+            256, sil_splits=sil_splits)
+        dtables.append(dtable)
+        sil_dtables.append(sil_dtable)
     test_utils.grad_errors("the strips' dtable", sum(dtables), full_dtable,
                            SOFT_GRAD_RTOL, test_utils.SOFT_DTABLE_GROUPS)
+    test_utils.grad_errors("the strips' K6 dtable", sum(sil_dtables),
+                           full_sil_dtable, SOFT_GRAD_RTOL,
+                           test_utils.SOFT_DTABLE_GROUPS)
 
 
 def _soft_render_args(dev):
