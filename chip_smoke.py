@@ -16,7 +16,10 @@ and runs these phases, printing one line or more per phase:
                pixel centres, two row strips against the full image, the
                zero-triangle mesh and the 256x256 batch-4 teapot. Forward
                kernels (K1 fused, K3 barycentric-only): ids equal; bc, z
-               and attributes within 1e-6. Backward kernels (K2 fused, K4
+               and attributes within 1e-6. K1 also at each split tried
+               (clusters of 2, 4 and 8 CTAs per group of pixel blocks):
+               every split bit for bit the compiled one's, and its ids, bc
+               and z bit for bit K3's. Backward kernels (K2 fused, K4
                barycentric-only), under cotangents from a seeded generator:
                each gradient within 1e-5 of the plain tensor's max |value|.
   4. main    — `mesh_renderer.render` on the teapot at 256x256 batch 4 with
@@ -33,7 +36,12 @@ and runs these phases, printing one line or more per phase:
                counting K3 and K4 launches; its ids and bc equal the fused
                path's.
   7. times   — CUDA-event medians: each kernel vs its plain version, the
-               forward render, and the training step.
+               forward render, and the training step. Then K1 alone
+               (utils/hard_work.py): its registers, spills and CTAs per SM,
+               its launch and device times at its compiled split and at
+               each split tried on the teapot, on the teapot's floor (its
+               table moved off screen, so that no row passes the cull) and
+               on sphere72 at 512x512 batch 4, and the cull's counts.
 
 The soft (SoftRas) renderer's phases follow:
 
@@ -44,16 +52,16 @@ The soft (SoftRas) renderer's phases follow:
                valid pair, whose gradients must be exactly 0), two row
                strips against the full image, the zero-triangle mesh, the
                256x256 batch-4 teapot and a sphere of 49,298 triangles at
-               64x64 in one launch per kernel and split. K7 runs at its
-               compiled split and at each split tried (clusters of 4 and 8
-               CTAs per pixel block), K6 at each of 4, 8 and 16 too.
+               64x64 in one launch per kernel and split. K7 and K5 run at
+               their compiled split and at each split tried (clusters of 4
+               and 8 CTAs per pixel block), K6 at each of 4, 8 and 16 too.
                Forward: rgb within 2e-5 abs + 1e-4 rel, alpha within 1e-6,
-               K7's outputs equal at every split and K5's alpha equal to
-               K7's, bit for bit. Backward, under seeded cotangents with rgb
-               and alpha parts: within 1e-4 of each plain tensor's max
-               |value|, the table gradient's per group of columns that come
-               from one input of the packing (clip, world, normals,
-               colours).
+               K7's outputs equal at every split and K5's alpha at every
+               split equal to K7's, bit for bit. Backward, under seeded
+               cotangents with rgb and alpha parts: within 1e-4 of each
+               plain tensor's max |value|, the table gradient's per group
+               of columns that come from one input of the packing (clip,
+               world, normals, colours).
   9. soft-main — `soft_mesh_renderer.render` on the teapot at 256x256 batch
                4 with 2 lights, counting K7 launches, against the plain
                route.
@@ -70,14 +78,15 @@ The soft (SoftRas) renderer's phases follow:
  12. soft-times — CUDA-event medians of each soft kernel vs its plain
                version, the soft render, the soft steps, the silhouette
                step and the fit step, and device time by kernel from
-               torch.profiler. Then K6, K7 and K8 alone
+               torch.profiler. Then K5, K6, K7 and K8 alone
                (utils/soft_work.py): each one's registers, spills, shared
                memory and CTAs per SM, and its launch and device times at
                its compiled split and at each split of a pixel block's
-               triangles tried (K6 4, 8, 16 CTAs at the teapot 256x256 and
-               the fit's shape; K7 clusters of 4 and 8 at the teapot
-               256x256 and 128x128; K8 4, 8, 16 at both teapot sizes); the
-               counts of where their work falls.
+               triangles tried (K5 clusters of 4 and 8 at the teapot
+               256x256, its floor and the fit's shape; K6 4, 8, 16 CTAs at
+               the teapot 256x256 and the fit's shape; K7 clusters of 4 and
+               8 at the teapot 256x256 and 128x128; K8 4, 8, 16 at both
+               teapot sizes); the counts of where their work falls.
 
 The design microbenchmarks of scripts/ (S1-S3), ported in
 pytorch_mesh_renderer_tpu_torch/microbench/, follow:
@@ -485,14 +494,15 @@ def soft_phases(dev, card, teapot):
 
     sil_splits = test_utils.soft_splits("soft_sil_bwd")
     fwd_splits = test_utils.soft_splits("soft_fwd")
+    sil_fwd_splits = test_utils.soft_splits("soft_sil_fwd")
 
     def compare_soft(name, scene, row_offset=0, full_height=None,
                      d_rgba=None):
-        """The four soft kernels vs their plain versions on one scene, K7
-        and K6 at each split tried. Returns K7's outputs, K5's alpha and
+        """The four soft kernels vs their plain versions on one scene, K7,
+        K5 and K6 at each split tried. Returns K7's outputs, K5's alpha and
         K8's and K6's dtables."""
         k7, alpha, found = test_utils.compare_soft_forward(
-            scene, row_offset, full_height, fwd_splits)
+            scene, row_offset, full_height, fwd_splits, sil_fwd_splits)
         if d_rgba is None:
             d_rgba = test_utils.soft_cotangents(
                 scene.table.shape[0], scene.height, scene.width, dev)
@@ -508,7 +518,8 @@ def soft_phases(dev, card, teapot):
                     worst[key] = max(worst.get(key, 0.0), err / scale)
                     report.append(f"{kernel_name} {label} {err:.3g} of "
                                   f"{scale:.3g}")
-        log("soft-kernel", f"{name}: alpha of soft_sil_fwd == soft_fwd; "
+        log("soft-kernel", f"{name}: alpha of soft_sil_fwd at splits "
+            f"{sil_fwd_splits} == soft_fwd; "
             "max abs error of max |plain| (parts whose plain value is 0 "
             "are 0 in the kernel too): " + ", ".join(report))
         return k7, alpha, dtable, sil_dtable
@@ -576,6 +587,7 @@ def soft_phases(dev, card, teapot):
     compare_soft(f"sphere {sphere.table.shape[1]} triangles 64x64", sphere)
     if soft_launch_counts() != {**{name: 1 for name in names},
                                 "soft_fwd": len(fwd_splits),
+                                "soft_sil_fwd": len(sil_fwd_splits),
                                 "soft_sil_bwd": len(sil_splits)}:
         raise AssertionError(f"sphere: launches {soft_launch_counts()}")
     log("soft-kernel", f"sphere of {sphere.table.shape[1]} triangles: one "
@@ -752,9 +764,9 @@ def soft_phases(dev, card, teapot):
             f"{step_ms[label]:.4f} ms, "
             f"{TEAPOT_BATCH * 1000.0 / step_ms[label]:.2f} renders/s")
 
-    # K6, K7 and K8 alone (utils/soft_work.py): each one's build, and its
-    # times at its compiled split and at each split tried; where their work
-    # falls.
+    # K5, K6, K7 and K8 alone (utils/soft_work.py): each one's build, and
+    # its times at its compiled split and at each split tried (K5 also on
+    # its floor, the teapot with no row kept); where their work falls.
     for kernel in soft_work.SPLITS:
         log("soft-times", f"{card} | {kernel}_kernel: " + json.dumps(
             soft_work.kernel_report(kernels.build().log, f"{kernel}_kernel")))
@@ -985,7 +997,8 @@ def main():
     from pytorch_mesh_renderer_tpu_torch.ops import (
         rasterize_barycentric_cuda as rb)
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
-    from pytorch_mesh_renderer_tpu_torch.utils import kernels, scenes
+    from pytorch_mesh_renderer_tpu_torch.utils import (hard_work, kernels,
+                                                       scenes, soft_work)
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
 
     golden_dir = os.path.join(REPO, "tests", "golden")
@@ -1043,9 +1056,23 @@ def main():
             if p.numel():
                 relative("rasterize_fused_fwd", err, float(p.abs().max()))
         covered = float((kernel[1].sum(-1) > 0).float().mean())
+        # K1 at each split tried: bit for bit the compiled split's, and
+        # ids, bc and z bit for bit K3's.
+        row_offset = kwargs.get("row_offset", 0)
+        splits = test_utils.compare_k1_splits(
+            rc.pack_rows(clip, tris, False)[0],
+            rc.pack_corner_attributes(attrs, tris), width, height,
+            row_offset, kwargs.get("full_height"), hard_splits)
+        if not all(torch.equal(a, b) for a, b in zip(splits, kernel)):
+            raise AssertionError(f"{name}: the launcher differs from the "
+                                 "wrapper")
         log("kernel", f"{name}: ids equal; max abs bc {errs[0]:.3g}, attrs "
-            f"{errs[1]:.3g}, z {errs[2]:.3g}; covered {covered:.3f}")
+            f"{errs[1]:.3g}, z {errs[2]:.3g}; covered {covered:.3f}; "
+            f"rasterize_fused_fwd at splits {hard_splits} bit for bit equal "
+            "and equal to rasterize_bary_fwd's ids, bc and z")
         return kernel
+
+    hard_splits = test_utils.hard_splits()
 
     # The cube of tests/test_rasterize_pallas.py: eye (2, 3, 6), 64x48.
     cube = torch.tensor([CUBE_VERTICES], **f32)
@@ -1119,6 +1146,7 @@ def main():
                 raise AssertionError(f"row strip {i} differs from the full "
                                      "image")
     log("kernel", "row strips reassemble the full image exactly")
+    compare("zero-triangle mesh 48x40", *scene[:2], scene[2][:0], 48, 40)
 
     # The headline scene: bench.py's teapot parameters (utils/scenes.py).
     teapot = scenes.build_scene(TEAPOT_BATCH, dev)
@@ -1494,6 +1522,17 @@ def main():
         f"to the vertices), teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}: "
         f"{train_ms:.4f} ms, {TEAPOT_BATCH * 1000.0 / train_ms:.2f} "
         "renders/s")
+
+    # K1 alone (utils/hard_work.py): its build, and its times at its
+    # compiled split and at each split tried, on the teapot, its floor (the
+    # table moved off screen: the stream and the cull alone) and sphere72
+    # 512x512 batch 4; where its work falls.
+    log("times", f"{card} | {hard_work.KERNEL}: " + json.dumps(
+        soft_work.kernel_report(build.log, hard_work.KERNEL)))
+    for line in hard_work.k1_times(dev):
+        log("times", f"{card} | " + json.dumps(line))
+    for scene_name, summary in hard_work.counts(dev).items():
+        log("times", f"{scene_name}: K1 cull counts " + json.dumps(summary))
 
     def bary_step():
         c = teapot_clip.detach().clone().requires_grad_(True)

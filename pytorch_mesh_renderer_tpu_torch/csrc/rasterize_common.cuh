@@ -1,8 +1,11 @@
 // Device code shared by the forward hard rasterizers K1
-// (rasterize_fused_fwd.cu) and K3 (rasterize_bary_fwd.cu): the per-pixel
-// z-buffer over every packed triangle row, with the per-block edge cull.
-// The TPU pair shares `_rasterize_chunk_core` (rasterize_pallas.py:265) in
-// the same way.
+// (rasterize_fused_fwd.cu) and K3 (rasterize_bary_fwd.cu): the per-block
+// edge cull (`row_may_cover`), the per-pixel test (`consider_row`) and the
+// order of winners (`wins`), and K3's one-CTA-per-block z-buffer loop
+// (`rasterize_pixel`, which S2's production core reuses). The TPU pair
+// shares `_rasterize_chunk_core` (rasterize_pallas.py:265) in the same
+// way. K1 runs the same cull and test in a cluster over a group of blocks
+// (rasterize_fused_fwd.cu) and must give K3's outputs bit for bit.
 //
 // What bounds it: tested brute force, every (pixel, triangle) pair costs a
 // few tens of fp32 operations. At 256x256, batch 4 and 2,464 triangles that
@@ -11,21 +14,21 @@
 // block. Most pairs cannot hit: a triangle of the teapot covers a few of a
 // batch image's 256 blocks.
 //
-// What the design does about it: one thread per pixel keeps its z-buffer
-// carry (best z, best id, the winner's three raw edge values) in registers.
-// A 16x16 block stages triangle rows into shared memory in slabs of 128
-// rows (64 B each) with coalesced 16-byte loads. Then 128 threads test one
-// staged row each against the block: a row is dropped when it is dead or
-// when one of its edge functions is provably negative at all four corner
-// pixel centres of the block, with a margin above the rounding error of
-// evaluating it. Edge functions are linear, so such a triangle covers no
-// pixel centre of the block, and the cull changes no output bit. The kept
-// rows are compacted in order with warp ballots; every thread then runs
-// the per-pixel test on them alone, reading each row as broadcast 16-byte
-// loads. The depth divide runs only for pixels inside a live triangle.
-// There is no binning prepass and no per-pass triangle cap: triangles
-// stream from device memory, so after the cull the kernel is bound by the
-// staging (every block reads every row once) and its barriers.
+// What rasterize_pixel does about it: one thread per pixel keeps its z-buffer
+// carry (best z, best id, the winner's three raw edge values) in registers. A
+// 16x16 block stages triangle rows into shared memory in slabs of 128 rows (64
+// B each) with coalesced 16-byte loads. Then 128 threads test one staged row
+// each against the block: a row is dropped when it is dead or when one of its
+// edge functions is provably negative at all four corner pixel centres of the
+// block, with a margin above the rounding error of evaluating it. Edge
+// functions are linear, so such a triangle covers no pixel centre of the block,
+// and the cull changes no output bit. The kept rows are compacted in order with
+// warp ballots; every thread then runs the per-pixel test on them alone,
+// reading each row as broadcast 16-byte loads. The depth divide runs only for
+// pixels inside a live triangle. There is no binning prepass and no per-pass
+// triangle cap: triangles stream from device memory, so after the cull the
+// kernel is bound by the staging (every block reads every row once) and its
+// barriers.
 //
 // Rounding: build with --fmad=false. The plain version evaluates
 // a*px + b*py + c as two products and two sums; an FMA would round
@@ -103,6 +106,43 @@ struct Winner {
   float we0, we1, we2;
 };
 
+// The per-pixel test of live row `row` (triangle t) at pixel centre
+// (px, py): if the pixel lies inside and its depth is valid and wins (the
+// smaller z; on equal z the larger id), the row becomes `best`. The depth
+// divide runs only for pixels inside the triangle.
+__device__ __forceinline__ void consider_row(const float4* row, float px,
+                                             float py, int t, Winner& best) {
+  const float4 r0 = row[0];  // a0 b0 c0 a1
+  const float4 r1 = row[1];  // b1 c1 a2 b2
+  const float e0 = r0.x * px + r0.y * py + r0.z;
+  const float e1 = r0.w * px + r1.x * py + r1.y;
+  const float4 r2 = row[2];  // c2 z0 z1 z2
+  const float e2 = r1.z * px + r1.w * py + r2.x;
+  const bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f &&
+                      (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
+  if (!inside) return;
+  const float4 r3 = row[3];  // w0 w1 w2 live
+  const float num = e0 * r2.y + e1 * r2.z + e2 * r2.w;
+  const float den = e0 * r3.x + e1 * r3.y + e2 * r3.z;
+  const float z = num / (den != 0.0f ? den : 1.0f);
+  if (z >= -1.0f && z <= 1.0f &&
+      (z < best.z || (z == best.z && t > best.id))) {
+    best.z = z;
+    best.id = t;
+    best.we0 = e0;
+    best.we1 = e1;
+    best.we2 = e2;
+  }
+}
+
+// Whether carry c wins over best: the order of the per-pixel test, a total
+// order on (z, id) pairs since ids differ (-0.0 == 0.0 ties go to the
+// larger id as well). Merging carries of disjoint row sets by it in any
+// order gives the carry of one thread running every row.
+__device__ __forceinline__ bool wins(const Winner& c, const Winner& best) {
+  return c.z < best.z || (c.z == best.z && c.id > best.id);
+}
+
 // Rasterizes this thread's pixel of a (kBlockX, kBlockY) block at
 // (blockIdx.x, blockIdx.y) of batch image blockIdx.z against all
 // `num_tris` rows of that image. Every thread of the block must call it:
@@ -171,28 +211,7 @@ __device__ __forceinline__ Winner rasterize_pixel(
     if (!in_image) continue;
     for (int k = 0; k < n_kept; ++k) {
       const int j = kept_rows[k];
-      const float4 r0 = slab[j * kRowFloat4s + 0];  // a0 b0 c0 a1
-      const float4 r1 = slab[j * kRowFloat4s + 1];  // b1 c1 a2 b2
-      const float e0 = r0.x * px + r0.y * py + r0.z;
-      const float e1 = r0.w * px + r1.x * py + r1.y;
-      const float4 r2 = slab[j * kRowFloat4s + 2];  // c2 z0 z1 z2
-      const float e2 = r1.z * px + r1.w * py + r2.x;
-      const bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f &&
-                          (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
-      if (!inside) continue;  // kept rows are live
-      const float4 r3 = slab[j * kRowFloat4s + 3];  // w0 w1 w2 live
-      const float num = e0 * r2.y + e1 * r2.z + e2 * r2.w;
-      const float den = e0 * r3.x + e1 * r3.y + e2 * r3.z;
-      const float z = num / (den != 0.0f ? den : 1.0f);
-      const int t = t0 + j;
-      if (z >= -1.0f && z <= 1.0f &&
-          (z < best.z || (z == best.z && t > best.id))) {
-        best.z = z;
-        best.id = t;
-        best.we0 = e0;
-        best.we1 = e1;
-        best.we2 = e2;
-      }
+      consider_row(&slab[j * kRowFloat4s], px, py, t0 + j, best);
     }
   }
   return best;

@@ -37,8 +37,6 @@
 // changes no output bit. There is no binning prepass and no per-pass
 // triangle cap: rows stream from device memory.
 //
-// - K5 (soft_sil_fwd.cu): one CTA per block, one thread per pixel running
-//   every staged row in index order.
 // - K6 and K8 (soft_sil_bwd.cu, soft_bwd.cu; the split in soft_split.cuh):
 //   kSplit CTAs per block, CTA s staging only the rows t = s (mod kSplit),
 //   256 rows a pass; inside a CTA the (staged triangle, 16x2 row pair its
@@ -46,13 +44,14 @@
 //   lane, and each triangle's column sums are reduced over the warp once.
 //   A busy block's work so spreads over kSplit x 8 warps instead of
 //   queueing on 8; their sums need no order.
-// - K7 (soft_fwd.cu): the fold of each pixel is ordered (the online
-//   softmax, and alpha bit-identical to K5's), so a thread-block cluster of
-//   kSplit CTAs splits the evaluation of the pairs (geometry and shading)
-//   and each pixel's owner folds the records the cluster wrote, in index
-//   order, through distributed shared memory. A busy block holds kSplit
-//   CTA slots for all its rounds, so the split pays where the busy blocks
-//   times kSplit about fit the card's CTA slots.
+// - K7 and K5 (soft_fwd.cu, soft_sil_fwd.cu; one body in
+//   soft_cluster_fwd.cuh, with and without shading): the fold of each
+//   pixel is ordered (the online softmax, and K5's alpha bit-identical to
+//   K7's), so a thread-block cluster of kSplit CTAs splits the evaluation
+//   of the pairs and each pixel's owner folds the records the cluster
+//   wrote, in index order, through distributed shared memory. A busy block
+//   holds kSplit CTA slots for all its rounds, so the split pays where the
+//   busy blocks times kSplit about fit the card's CTA slots.
 //
 // Lights are read from device memory through the read-only cache; no
 // kernel caps their count.
@@ -75,11 +74,6 @@ constexpr int kSoftBlockX = 16;
 constexpr int kSoftBlockY = 16;
 constexpr int kSoftThreads = kSoftBlockX * kSoftBlockY;
 constexpr int kCols = 59;
-// Rows tested per pass; the kept ones are staged: 128 x 59 x 4 = 30 KB.
-constexpr int kSlabRows = 128;
-constexpr int kSlabWarps = kSlabRows / 32;
-static_assert(kSlabRows % 32 == 0 && kSlabRows <= kSoftThreads,
-              "one culling thread per tested row, in whole warps");
 constexpr float kEps = 1e-10f;  // background floor, soft_rasterize.py:40
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -139,7 +133,7 @@ __device__ __forceinline__ bool block_keeps(const float* r,
 // kPerThread x kRows / 32 counts. Returns the kept rows' count. Every
 // thread of the block must call it; it starts and ends with a block
 // barrier.
-template <int kRows = kSlabRows, int kPerThread = 1>
+template <int kRows, int kPerThread = 1>
 __device__ __forceinline__ int cull_rows(const float* __restrict__ rows_b,
                                          int t0, int n, int stride,
                                          const BlockExtent& e, int* kept_ids,
@@ -192,7 +186,7 @@ __device__ __forceinline__ int cull_rows(const float* __restrict__ rows_b,
 // cull_rows, then copies the kept rows, in index order, to `slab`
 // (kRows x kCols). Returns the kept rows' count; ends with a block
 // barrier.
-template <int kRows = kSlabRows>
+template <int kRows>
 __device__ __forceinline__ int stage_rows(const float* __restrict__ rows_b,
                                           int t0, int n, int stride,
                                           const BlockExtent& e, float* slab,

@@ -203,7 +203,7 @@ def check_inputs(clip_vertices, attributes, triangles, image_width,
 
 
 def launch_fused_fwd(table, corner, image_width, image_height, row_offset,
-                     full_height, with_z):
+                     full_height, with_z, split=0):
     """Launch the CUDA kernel on packed tables; returns its outputs.
 
     Args:
@@ -211,6 +211,10 @@ def launch_fused_fwd(table, corner, image_width, image_height, row_offset,
         contiguous, 16-byte aligned.
       corner: [B, T, 3, A] f32 corner attributes (pack_corner_attributes),
         contiguous, on the same device.
+      split: CTAs per group of 2x2 pixel blocks, one thread-block cluster
+        (1, 2, 4 or 8); 0, the default, takes the kernel's compiled kSplit.
+        Other values serve only to measure that choice (chip_smoke.py,
+        utils/hard_work.py). The outputs do not depend on it.
 
     Returns:
       (ids, barycentrics, attributes[, z]) as rasterize_interpolate_cuda.
@@ -252,7 +256,7 @@ def launch_fused_fwd(table, corner, image_width, image_height, row_offset,
             bc.data_ptr(), z.data_ptr() if with_z else None,
             attrs.data_ptr(), batch, n_tri, n_attr, image_width,
             image_height, row_offset, pixel_scale(image_width),
-            pixel_scale(full_height), stream)
+            pixel_scale(full_height), int(split), stream)
     kernels.check_cuda_error(lib, error, "rasterize_fused_fwd launch")
     LAUNCHES += 1
     out = (ids, bc, attrs)

@@ -513,8 +513,11 @@ def launch_soft_bwd(table, lights, params, rgba, run_max, sum_w, d_rgba,
     return dtable, dlights, dparams
 
 
-def launch_sil_fwd(table, params, image_width, image_height, full_height):
-    """Launch K5; returns alpha [B, H, W]. Operands as launch_soft_fwd's."""
+def launch_sil_fwd(table, params, image_width, image_height, full_height,
+                   split=0):
+    """Launch K5; returns alpha [B, H, W]. Operands and split as
+    launch_soft_fwd's; alpha does not depend on the split and equals K7's
+    bit for bit."""
     global SIL_FWD_LAUNCHES
     device = table.device
     _check_table(table, params, device)
@@ -525,7 +528,8 @@ def launch_sil_fwd(table, params, image_width, image_height, full_height):
     with torch.cuda.device(device):
         error = lib.soft_sil_fwd(
             table.data_ptr(), params.data_ptr(), alpha.data_ptr(), batch,
-            n_tri, image_width, image_height, full_height, _stream(device))
+            n_tri, image_width, image_height, full_height, int(split),
+            _stream(device))
     kernels.check_cuda_error(lib, error, "soft_sil_fwd launch")
     SIL_FWD_LAUNCHES += 1
     return alpha

@@ -129,17 +129,18 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rasterize_fused_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, f32,
-                                                                ptr]
+                                                                i32, ptr]
     lib.rasterize_fused_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     lib.rasterize_bary_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32,
                                                                ptr]
     lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-    lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
     lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    occupancy = (lib.soft_bwd_blocks_per_sm, lib.soft_sil_bwd_blocks_per_sm,
-                 lib.soft_fwd_blocks_per_sm)
+    occupancy = (lib.rasterize_fused_fwd_blocks_per_sm,
+                 lib.soft_bwd_blocks_per_sm, lib.soft_sil_bwd_blocks_per_sm,
+                 lib.soft_fwd_blocks_per_sm, lib.soft_sil_fwd_blocks_per_sm)
     for entry in occupancy:
         entry.argtypes = []
     lib.mxu_edge_fma.argtypes = [ptr] * 3 + [i32] * 3 + [f32, ptr]

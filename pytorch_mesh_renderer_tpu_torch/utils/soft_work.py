@@ -46,11 +46,13 @@ SIGMA, GAMMA = 1e-5, 1e-4
 FIT_SIGMA = 3e-5  # the cow fit's
 # The splits of a pixel block's triangles tried per kernel (CTAs per
 # block), each kernel's launcher, and the scenes it is timed on.
-SPLITS = {"soft_sil_bwd": (4, 8, 16), "soft_fwd": (4, 8),
-          "soft_bwd": (4, 8, 16)}
-LAUNCHERS = {"soft_sil_bwd": "launch_sil_bwd", "soft_fwd": "launch_soft_fwd",
+SPLITS = {"soft_sil_fwd": (4, 8), "soft_sil_bwd": (4, 8, 16),
+          "soft_fwd": (4, 8), "soft_bwd": (4, 8, 16)}
+LAUNCHERS = {"soft_sil_fwd": "launch_sil_fwd",
+             "soft_sil_bwd": "launch_sil_bwd", "soft_fwd": "launch_soft_fwd",
              "soft_bwd": "launch_soft_bwd"}
-SCENES = {"soft_sil_bwd": ("teapot 256", "fit 128"),
+SCENES = {"soft_sil_fwd": ("teapot 256", "teapot 256 floor", "fit 128"),
+          "soft_sil_bwd": ("teapot 256", "fit 128"),
           "soft_fwd": ("teapot 256", "teapot 128"),
           "soft_bwd": ("teapot 256", "teapot 128")}
 
@@ -266,6 +268,9 @@ def kernel_launch(kernel, table, lights, params, size):
     if kernel == "soft_fwd":
         return lambda **split: sc.launch_soft_fwd(table, lights, params,
                                                   size, size, size, **split)
+    if kernel == "soft_sil_fwd":
+        return lambda **split: sc.launch_sil_fwd(table, params, size, size,
+                                                 size, **split)
     (rgba, run_max, sum_w), d_rgba = forward_residuals(table, lights, params,
                                                        size)
     if kernel == "soft_bwd":
@@ -312,9 +317,15 @@ def time_kernel(kernel, table, lights, params, size, split=0, iters=20):
 
 def scene_table(scene, device):
     """(table, lights, params) of a scene of SCENES: "teapot <size>" (batch
-    4) or "fit 128"."""
+    4), "fit 128", or "teapot 256 floor", the teapot's table with no row
+    kept (the stream and the cull alone)."""
     if scene == "fit 128":
         return fit_table(device)
+    if scene == "teapot 256 floor":
+        table, lights, params = teapot_table(256, device)
+        table = table.clone()
+        table[..., 21] = 0.0  # no row is kept: the stream and cull alone
+        return table, lights, params
     return teapot_table(int(scene.split()[-1]), device)
 
 
@@ -326,7 +337,7 @@ def kernel_times(kernel, device):
     lines = []
     for scene in SCENES[kernel]:
         table, lights, params = scene_table(scene, device)
-        size = int(scene.split()[-1])
+        size = int(re.search(r"\d+", scene)[0])
         times = {f"split {s or 'compiled'}": time_kernel(
             kernel, table, lights, params, size, s) for s in splits}
         lines.append({"kernel": kernel, "scene": scene,

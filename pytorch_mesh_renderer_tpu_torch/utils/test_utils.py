@@ -434,10 +434,18 @@ def grad_errors(label, kernel, plain, rtol, groups=None):
 
 def soft_splits(kernel):
     """0 (the compiled split) and each split of a pixel block that
-    utils/soft_work.py tries for `kernel` ("soft_sil_bwd", "soft_fwd")."""
+    utils/soft_work.py tries for `kernel` (a key of its SPLITS)."""
     from . import soft_work
 
     return (0,) + soft_work.SPLITS[kernel]
+
+
+def hard_splits():
+    """0 (K1's compiled split) and each split of a pixel block that
+    utils/hard_work.py tries."""
+    from . import hard_work
+
+    return (0,) + hard_work.SPLITS
 
 
 def _split(split):
@@ -445,15 +453,43 @@ def _split(split):
     return {"split": split} if split else {}
 
 
-def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,)):
+def compare_k1_splits(table, corner, width, height, row_offset=0,
+                      full_height=None, splits=(0,)):
+    """K1 on packed tables (CUDA tensors) at each of `splits` (clusters of
+    CTAs per pixel block; 0 is its compiled one): every split must give the
+    first's (ids, bc, attributes, z) bit for bit, and its ids, bc and z
+    must equal K3's, the one-CTA-per-block design, bit for bit. Raises
+    AssertionError otherwise; returns K1's outputs at splits[0]."""
+    from ..ops import rasterize_barycentric_cuda as rb
+    from ..ops import rasterize_cuda as rc
+
+    full_height = full_height or height
+    k1 = rc.launch_fused_fwd(table, corner, width, height, row_offset,
+                             full_height, True, **_split(splits[0]))
+    for split in splits[1:]:
+        other = rc.launch_fused_fwd(table, corner, width, height, row_offset,
+                                    full_height, True, **_split(split))
+        if not all(torch.equal(a, b) for a, b in zip(other, k1)):
+            raise AssertionError(f"rasterize_fused_fwd at split {split} "
+                                 f"differs from split {splits[0]}")
+    k3 = rb.launch_bary_fwd(table, width, height, row_offset, full_height)
+    if not all(torch.equal(a, b) for a, b in zip(k3, (k1[0], k1[1], k1[3]))):
+        raise AssertionError("rasterize_fused_fwd's ids, bc or z differ "
+                             "from rasterize_bary_fwd's")
+    return k1
+
+
+def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,),
+                         sil_splits=(0,)):
     """K7 and K5 against the plain forward on one scene (CUDA tensors).
 
     Rows [row_offset, row_offset + scene.height) of a full_height-row image.
-    K7 runs at each of `splits` (clusters of CTAs per pixel block; 0 is its
-    compiled one), and every split must give the first's outputs bit for
-    bit. Raises AssertionError past a gate or if K5's alpha differs from
-    K7's in any bit. Returns ((rgba, run_max, sum_w) of K7 at splits[0],
-    alpha of K5, errors): errors maps a kernel name to [(label, max abs
+    K7 runs at each of `splits` and K5 at each of `sil_splits` (clusters of
+    CTAs per pixel block; 0 is a kernel's compiled one), and every split
+    must give the first's outputs bit for bit. Raises AssertionError past a
+    gate or if K5's alpha at any split differs from K7's in any bit.
+    Returns ((rgba, run_max, sum_w) of K7 at splits[0], alpha of K5 at
+    sil_splits[0], errors): errors maps a kernel name to [(label, max abs
     error, max |plain|)].
     """
     from ..ops import soft_rasterize_cuda as sc
@@ -468,7 +504,9 @@ def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,)):
         if not all(torch.equal(a, b) for a, b in zip(other, k7)):
             raise AssertionError(f"soft_fwd at split {split} differs from "
                                  f"split {splits[0]}")
-    alpha = sc.launch_sil_fwd(table, params, width, height, full_height)
+    alphas = [sc.launch_sil_fwd(table, params, width, height, full_height,
+                                **_split(split)) for split in sil_splits]
+    alpha = alphas[0]
     rgb, plain_alpha, _, _ = sc.soft_forward_torch_packed(
         table, lights, params[0], params[1], params[2], height, width,
         row_offset, full_height, False, scene.triangle_chunk)
@@ -488,9 +526,10 @@ def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,)):
     if not alpha_err[0] <= SOFT_ALPHA_ATOL:
         raise AssertionError(f"soft_fwd alpha max abs {alpha_err[0]} > "
                              f"{SOFT_ALPHA_ATOL}")
-    if not torch.equal(alpha, rgba[..., 3]):
-        raise AssertionError("soft_sil_fwd alpha differs from soft_fwd "
-                             "alpha")
+    for split, other in zip(sil_splits, alphas):
+        if not torch.equal(other, rgba[..., 3]):
+            raise AssertionError(f"soft_sil_fwd alpha at split {split} "
+                                 "differs from soft_fwd alpha")
     errors = {"soft_fwd": [("rgb", *rgb_err), ("alpha", *alpha_err)],
               "soft_sil_fwd": [("alpha", *error(alpha, plain_alpha))]}
     return k7, alpha, errors

@@ -13,13 +13,17 @@ ids must be equal and bc, z and attributes agree to 1e-6. The backward
 kernels (K2, K4) sum per-pixel terms into per-triangle rows with atomic
 adds in an order that changes from run to run: their gradients agree with
 the plain versions' to 1e-5 of the plain tensor's max |value|, per tensor,
-the JAX suite's CPU gate between its two backward backends.
+the JAX suite's CPU gate between its two backward backends. K1 runs as a
+cluster of CTAs per group of pixel blocks whose partial winners merge in
+any order: at each split tried its outputs are bit for bit the same, and
+its ids, bc and z equal K3's (one CTA per block) bit for bit.
 
 The soft kernels (K5-K8) against their plain versions: forward rgb within
 2e-5 abs and 1e-4 rel (the JAX suite's Pallas-vs-XLA gate) and alpha within
 1e-6 (the kernels aggregate the softmax triangle by triangle, the plain
 version chunk by chunk; the silhouette product runs in the same order in
-both); K5's alpha equals K7's bit for bit (shared device code); the
+both); K5's alpha equals K7's bit for bit at every split (one cluster
+body, with and without shading); the
 backward kernels (K6, K8) within `test_utils.SOFT_GRAD_RTOL` of each plain
 tensor's max |value|, the table gradient's per group of columns that come
 from one input of the packing: clip, world, normals, colours
@@ -52,7 +56,7 @@ from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-from pytorch_mesh_renderer_tpu_torch.utils import scenes, test_utils
+from pytorch_mesh_renderer_tpu_torch.utils import hard_work, scenes, test_utils
 
 pytestmark = pytest.mark.cuda
 
@@ -158,6 +162,48 @@ def test_row_strips_and_empty_mesh(dev):
         rc.rasterize_interpolate_cuda(clip, attrs, empty, 48, 40, with_z=True),
         rc.rasterize_interpolate_torch(clip, attrs, empty, 48, 40,
                                        with_z=True))
+
+
+@pytest.mark.parametrize("scene", ["cube", "random3", "random9", "random16",
+                                   "snapped", "teapot"])
+def test_k1_at_every_split_equals_the_plain_version_and_k3(dev, scene):
+    """K1 is a cluster of kSplit CTAs per pixel block whose partial
+    winners merge in any order: at its compiled split and at each split
+    tried (utils/hard_work.SPLITS) its outputs are bit for bit the same,
+    its ids, bc and z equal K3's (the one-CTA-per-block design) bit for
+    bit, and they hold the plain version's gates."""
+    if scene == "teapot":
+        clip, attrs, tris, size = hard_work.scene_tables("teapot 256", dev)
+        width = height = size
+    else:
+        clip, attrs, tris, width, height = _scene(scene, dev)
+    table = rc.pack_rows(clip, tris, False)[0]
+    corner = rc.pack_corner_attributes(attrs, tris)
+    splits = test_utils.hard_splits()
+    before = rc.LAUNCHES
+    k1 = test_utils.compare_k1_splits(table, corner, width, height,
+                                      splits=splits)
+    assert rc.LAUNCHES == before + len(splits)
+    _assert_same(k1, rc.forward_torch_packed(table, corner, width, height,
+                                             0, height, True))
+    assert bool((k1[0] > 0).any())
+
+
+def test_k1_splits_on_row_strips_and_the_empty_mesh(dev):
+    clip, attrs, tris, _, _ = _scene("random9", dev)
+    corner = rc.pack_corner_attributes(attrs, tris)
+    table = rc.pack_rows(clip, tris, False)[0]
+    splits = test_utils.hard_splits()
+    full = test_utils.compare_k1_splits(table, corner, 48, 40, splits=splits)
+    for i in range(2):
+        strip = test_utils.compare_k1_splits(table, corner, 48, 20, 20 * i,
+                                             40, splits)
+        for s, f in zip(strip, full):
+            assert torch.equal(s, f[:, 20 * i:20 * (i + 1)])
+    empty = test_utils.compare_k1_splits(table[:, :0].contiguous(),
+                                         corner[:, :0].contiguous(), 48, 40,
+                                         splits=splits)
+    assert not bool(empty[0].any()) and bool((empty[3] == 1.0).all())
 
 
 def test_render_backward_launches_kernel_once(dev):
@@ -432,6 +478,25 @@ def test_soft_kernels_match_plain_versions_at_k8_edges(dev, scene):
                 soft_scene.height, split=split)
             assert torch.equal(sil_dtable[1], torch.zeros_like(sil_dtable[1]))
             assert bool(sil_dtable[0].abs().sum() > 0.0)
+
+
+@pytest.mark.parametrize("scene", SOFT_SCENES + test_utils.SOFT_EDGE_SCENES
+                         + ("sphere",))
+def test_k5_at_every_split_equals_k7_alpha(dev, scene):
+    """K5 runs K7's cluster body without shading: at its compiled split and
+    at each split tried its alpha equals K7's bit for bit (the sphere of
+    49,298 triangles in one launch per split too), within the plain
+    version's gate."""
+    soft_scene = test_utils.soft_scene(scene, dev)
+    sil_splits = test_utils.soft_splits("soft_sil_fwd")
+    before = _soft_launches()
+    _, alpha, errors = test_utils.compare_soft_forward(
+        soft_scene, sil_splits=sil_splits)
+    assert _soft_launches() == (before[0] + 1, before[1] + len(sil_splits),
+                                *before[2:])
+    assert all(err <= test_utils.SOFT_ALPHA_ATOL
+               for _, err, _ in errors["soft_sil_fwd"])
+    assert float(alpha.max()) > 0.5
 
 
 def test_soft_backward_row_strips_on_the_full_frame_quad(dev):
