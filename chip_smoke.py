@@ -19,7 +19,9 @@ and runs these phases, printing one line or more per phase:
                and attributes within 1e-6. K1 also at each split tried
                (clusters of 2, 4 and 8 CTAs per group of pixel blocks):
                every split bit for bit the compiled one's, and its ids, bc
-               and z bit for bit K3's. Backward kernels (K2 fused, K4
+               and z bit for bit K3's at its launcher's rule and at each
+               group and split tried (also on a scene of exact depth ties,
+               one image and two). Backward kernels (K2 fused, K4
                barycentric-only), under cotangents from a seeded generator:
                each gradient within 1e-5 of the plain tensor's max |value|.
   4. main    — `mesh_renderer.render` on the teapot at 256x256 batch 4 with
@@ -36,12 +38,16 @@ and runs these phases, printing one line or more per phase:
                counting K3 and K4 launches; its ids and bc equal the fused
                path's.
   7. times   — CUDA-event medians: each kernel vs its plain version, the
-               forward render, and the training step. Then K1 alone
-               (utils/hard_work.py): its registers, spills and CTAs per SM,
-               its launch and device times at its compiled split and at
-               each split tried on the teapot, on the teapot's floor (its
-               table moved off screen, so that no row passes the cull) and
-               on sphere72 at 512x512 batch 4, and the cull's counts.
+               forward render, and the training step. Then K1-K4 alone
+               (utils/hard_work.py): their registers, spills and CTAs per
+               SM; K1's launch and device times at its compiled split and
+               at each split tried on the teapot, on the teapot's floor
+               (its table moved off screen, so that no row passes the
+               cull) and on sphere72 at 512x512 batch 4; K2's with A = 9
+               on the teapot and sphere72 and on its floor (every pixel
+               inactive); K3's and K4's for one teapot image and for four,
+               K3 at its launcher's rule and at each group and split; the
+               K1 cull's counts and where K2's work falls.
 
 The soft (SoftRas) renderer's phases follow:
 
@@ -989,8 +995,6 @@ def main():
 
     sys.path.insert(0, REPO)
     from pytorch_mesh_renderer_tpu_torch import config as config_lib
-    from pytorch_mesh_renderer_tpu_torch.microbench.common import (
-        device_profile)
     from pytorch_mesh_renderer_tpu_torch.models import mesh_renderer
     from pytorch_mesh_renderer_tpu_torch.ops import camera
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
@@ -1062,17 +1066,19 @@ def main():
         splits = test_utils.compare_k1_splits(
             rc.pack_rows(clip, tris, False)[0],
             rc.pack_corner_attributes(attrs, tris), width, height,
-            row_offset, kwargs.get("full_height"), hard_splits)
+            row_offset, kwargs.get("full_height"), hard_splits, bary_shapes)
         if not all(torch.equal(a, b) for a, b in zip(splits, kernel)):
             raise AssertionError(f"{name}: the launcher differs from the "
                                  "wrapper")
         log("kernel", f"{name}: ids equal; max abs bc {errs[0]:.3g}, attrs "
             f"{errs[1]:.3g}, z {errs[2]:.3g}; covered {covered:.3f}; "
             f"rasterize_fused_fwd at splits {hard_splits} bit for bit equal "
-            "and equal to rasterize_bary_fwd's ids, bc and z")
+            "and equal to rasterize_bary_fwd's ids, bc and z at (group, "
+            f"split) {bary_shapes}")
         return kernel
 
     hard_splits = test_utils.hard_splits()
+    bary_shapes = test_utils.bary_shapes()
 
     # The cube of tests/test_rasterize_pallas.py: eye (2, 3, 6), 64x48.
     cube = torch.tensor([CUBE_VERTICES], **f32)
@@ -1147,6 +1153,11 @@ def main():
                                      "image")
     log("kernel", "row strips reassemble the full image exactly")
     compare("zero-triangle mesh 48x40", *scene[:2], scene[2][:0], 48, 40)
+    ties = test_utils.ties_scene()
+    ties = [torch.tensor(a, device=dev) for a in ties[:3]] + list(ties[3:])
+    compare("ties 40x36", ties[0], ties[2], ties[1], *ties[3:])
+    compare("ties 40x36, one image", ties[0][:1], ties[2][:1], ties[1],
+            *ties[3:])
 
     # The headline scene: bench.py's teapot parameters (utils/scenes.py).
     teapot = scenes.build_scene(TEAPOT_BATCH, dev)
@@ -1241,7 +1252,7 @@ def main():
 
     compare_backward("cube 64x48", camera.transform_homogeneous(
         cube_cam, cube), cube * 0.5 + 0.5, cube_tris, 64, 48)
-    for attr_count in (3, 9, 16):
+    for attr_count in (0, 3, 9, 16, 40):
         compare_backward(f"random A={attr_count} 48x40",
                          *random_scene(attr_count), 48, 40)
     compare_backward("snapped 80x56", *snapped, 80, 56)
@@ -1478,8 +1489,10 @@ def main():
     g_bc = cotangents(tuple(bc.shape))
     g_attr = cotangents(tuple(ids.shape) + (teapot_attrs.shape[-1],))
     fused = (ids, bc, g_bc, g_attr, table, inv_abs_det, corner)
-    bary = (ids, bc, g_bc, table, inv_abs_det)
-    no_attrs = torch.zeros(TEAPOT_BATCH, table.shape[1], 3, 0, **f32)
+    # K3 and K4 at the shape their path gives them: `rasterize_barycentric`
+    # renders one image a launch (the teapot's first).
+    bary = tuple(t[:1] for t in (ids, bc, g_bc, table, inv_abs_det))
+    no_attrs = torch.zeros(1, table.shape[1], 3, 0, **f32)
     ms = {
         "rasterize_fused_fwd": (launch_ms, plain_ms),
         "rasterize_fused_bwd": (
@@ -1488,9 +1501,9 @@ def main():
                          iters=5)),
         "rasterize_bary_fwd": (
             cuda_time_ms(lambda: rb.launch_bary_fwd(
-                table, TEAPOT_SIZE, TEAPOT_SIZE, 0, TEAPOT_SIZE), iters=20),
+                bary[3], TEAPOT_SIZE, TEAPOT_SIZE, 0, TEAPOT_SIZE), iters=20),
             cuda_time_ms(lambda: rc.forward_torch_packed(
-                table, no_attrs, TEAPOT_SIZE, TEAPOT_SIZE, 0, TEAPOT_SIZE,
+                bary[3], no_attrs, TEAPOT_SIZE, TEAPOT_SIZE, 0, TEAPOT_SIZE,
                 True), iters=3)),
         "rasterize_bary_bwd": (
             cuda_time_ms(lambda: rb.launch_bary_bwd(*bary), iters=20),
@@ -1508,11 +1521,12 @@ def main():
     log("times", f"{card} | fused rasterize, teapot {TEAPOT_SIZE}^2 batch "
         f"{TEAPOT_BATCH}, A=9: kernel wrapper {kernel_ms:.4f} ms (kernel "
         f"launch alone {launch_ms:.4f} ms), plain version {plain_ms:.4f} ms")
-    for name in ("rasterize_fused_bwd", "rasterize_bary_fwd",
-                 "rasterize_bary_bwd"):
-        log("times", f"{card} | {name}, teapot {TEAPOT_SIZE}^2 batch "
-            f"{TEAPOT_BATCH}: kernel launch {ms[name][0]:.4f} ms, plain "
-            f"version {ms[name][1]:.4f} ms")
+    for name, images in (("rasterize_fused_bwd", f"batch {TEAPOT_BATCH}"),
+                         ("rasterize_bary_fwd", "one image"),
+                         ("rasterize_bary_bwd", "one image")):
+        log("times", f"{card} | {name}, teapot {TEAPOT_SIZE}^2 {images}: "
+            f"kernel launch {ms[name][0]:.4f} ms, plain version "
+            f"{ms[name][1]:.4f} ms")
     log("times", f"{card} | fused backward with the vertex scatter: via "
         f"the kernel {backward_ms:.4f} ms, plain {plain_backward_ms:.4f} ms")
     log("times", f"{card} | render forward, teapot {TEAPOT_SIZE}^2 batch "
@@ -1523,69 +1537,90 @@ def main():
         f"{train_ms:.4f} ms, {TEAPOT_BATCH * 1000.0 / train_ms:.2f} "
         "renders/s")
 
-    # K1 alone (utils/hard_work.py): its build, and its times at its
+    # K1-K4 alone (utils/hard_work.py): their builds. K1's times at its
     # compiled split and at each split tried, on the teapot, its floor (the
     # table moved off screen: the stream and the cull alone) and sphere72
-    # 512x512 batch 4; where its work falls.
-    log("times", f"{card} | {hard_work.KERNEL}: " + json.dumps(
-        soft_work.kernel_report(build.log, hard_work.KERNEL)))
-    for line in hard_work.k1_times(dev):
+    # 512x512 batch 4; K2's with A = 9 on the teapot and sphere72 and on
+    # its floor (every pixel inactive); K3's and K4's for one teapot image
+    # and for four, K3 at its launcher's rule and at each group and split.
+    # Where K1's and K2's work falls.
+    for key in hard_work.KERNELS:
+        for kernel_name in hard_work.report_names(build.log, key):
+            log("times", f"{card} | {kernel_name}: " + json.dumps(
+                soft_work.kernel_report(build.log, kernel_name)))
+    for line in (hard_work.k1_times(dev) + hard_work.k2_times(dev)
+                 + hard_work.k34_times(dev)):
         log("times", f"{card} | " + json.dumps(line))
     for scene_name, summary in hard_work.counts(dev).items():
         log("times", f"{scene_name}: K1 cull counts " + json.dumps(summary))
+    for scene_name, summary in hard_work.bwd_scene_counts(dev).items():
+        log("times", f"{scene_name}: K2 work counts " + json.dumps(
+            summary["total"]))
 
-    def bary_step():
-        c = teapot_clip.detach().clone().requires_grad_(True)
-        out = [rasterize_ops.rasterize_barycentric(
-            c[b], teapot["triangles"], TEAPOT_SIZE, TEAPOT_SIZE)
-            for b in range(TEAPOT_BATCH)]
-        sum((bc * weights).sum() for _, bc, _ in out).backward()
-
-    for label, fn, wall_ms in (
-            ("training step", train_step, train_ms),
-            (f"rasterize_barycentric x {TEAPOT_BATCH} images + backward",
-             bary_step, None)):
-        by_name, device_ms, n_kernels = device_profile(fn, iters=10)
-        idle = ("" if wall_ms is None else f"; idle share "
-                f"{1.0 - device_ms / wall_ms:.3f} of the unprofiled "
-                f"{wall_ms:.4f} ms")
+    # The device time of the hard training step and of the 4-image
+    # rasterize_barycentric step (utils/hard_work.py `step_profiles`), the
+    # training step's idle share against its unprofiled wall time.
+    for label, (device_ms, n_kernels, ours) in hard_work.step_profiles(
+            dev).items():
+        idle = (f"; idle share {1.0 - device_ms / train_ms:.3f} of the "
+                f"unprofiled {train_ms:.4f} ms"
+                if label == hard_work.TRAIN_STEP else "")
         log("times", f"{card} | profile {label}: device kernel time "
-            f"{device_ms:.4f} ms per call in {n_kernels:.0f} kernels{idle};"
-            f" {kernel_device_ms(by_name)}")
+            f"{device_ms:.4f} ms per call in {n_kernels:.0f} kernels{idle}; "
+            + (", ".join(f"{name} {t:.4f} ms" for name, t in ours.items())
+               or "no kernel recorded (CUDA events)"))
 
-    # Each hard kernel's bound at the headline scene (bytes read once and
-    # written once; the pairs of pixel centres inside each triangle's
-    # screen bbox times HARD_OPS_PER_PAIR, plus the per-pixel epilogue).
-    batch, n_tri = table.shape[:2]
+    # Each hard kernel's bound at the shape it was timed at (bytes read
+    # once and written once; the pairs of pixel centres inside each
+    # triangle's screen bbox times HARD_OPS_PER_PAIR, plus the per-pixel
+    # epilogue): K1 and K2 the teapot batch, K3 and K4 its first image.
+    # The backwards read ids and bc of every pixel but the cotangents of
+    # the active pixels only (the rest contribute nothing), and do their
+    # arithmetic for those alone; of the table they read and write the rows
+    # of the distinct (image, winner) pairs only (the caller zeroes it):
+    # the 9-float adjugate, 1/|det|, K2's corner attributes, the 9 + 3A
+    # output columns.
     n_attr = teapot_attrs.shape[-1]
-    pixels = TEAPOT_BATCH * TEAPOT_SIZE ** 2
     corners = teapot_clip[:, teapot["triangles"].long()]
     ndc = corners[..., :2] / corners[..., 3:4]
-    pairs = pixel_pairs(ndc[..., 0].amin(-1), ndc[..., 0].amax(-1),
-                        ndc[..., 1].amin(-1), ndc[..., 1].amax(-1),
-                        torch.ones(batch, n_tri, **f32), TEAPOT_SIZE,
-                        TEAPOT_SIZE)
-    table_bytes = table.numel() * 4
-    det_bytes = inv_abs_det.numel() * 4
-    corner_bytes = corner.numel() * 4
+    image_pixels = TEAPOT_SIZE ** 2
+
+    def work(images):
+        """(pixels, (pixel, triangle) pairs, table rows, active pixels,
+        distinct (image, winner) pairs) of the teapot's first `images`
+        images."""
+        lo, hi = ndc[:images].amin(-2), ndc[:images].amax(-2)
+        counts = hard_work.bwd_counts(ids[:images], bc[:images])["total"]
+        return (images * image_pixels,
+                pixel_pairs(lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1],
+                            torch.ones(lo.shape[:2], **f32), TEAPOT_SIZE,
+                            TEAPOT_SIZE),
+                images * table.shape[1], counts["active_pixels"],
+                counts["winners"])
+
+    pixels, pairs, rows, active, winners = work(TEAPOT_BATCH)
+    pixels1, pairs1, rows1, active1, winners1 = work(1)
     bounds = {
         "rasterize_fused_fwd": bound_ms(
-            table_bytes + corner_bytes + pixels * (4 + 12 + 4 * n_attr),
+            rows * (64 + 12 * n_attr) + pixels * (4 + 12 + 4 * n_attr),
             pairs * HARD_OPS_PER_PAIR + pixels * 6 * n_attr),
         "rasterize_fused_bwd": bound_ms(
-            pixels * (4 + 12 + 12 + 4 * n_attr) + table_bytes + det_bytes
-            + corner_bytes + batch * n_tri * (9 + 3 * n_attr) * 4,
-            pixels * (9 + 3 * n_attr) * 4),
-        "rasterize_bary_fwd": bound_ms(table_bytes + pixels * (4 + 12 + 4),
-                                       pairs * HARD_OPS_PER_PAIR),
+            pixels * (4 + 12) + active * (12 + 4 * n_attr)
+            + winners * (36 + 4 + 12 * n_attr + (9 + 3 * n_attr) * 4),
+            active * (9 + 3 * n_attr) * 4),
+        "rasterize_bary_fwd": bound_ms(rows1 * 64 + pixels1 * (4 + 12 + 4),
+                                       pairs1 * HARD_OPS_PER_PAIR),
         "rasterize_bary_bwd": bound_ms(
-            pixels * (4 + 12 + 12) + table_bytes + det_bytes
-            + batch * n_tri * 9 * 4, pixels * 9 * 4),
+            pixels1 * (4 + 12) + active1 * 12 + winners1 * (36 + 4 + 9 * 4),
+            active1 * 9 * 4),
     }
     log("times", f"{card} | teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH}: "
-        f"{pairs} (pixel, triangle) pairs inside the triangles' bboxes; "
-        "bounds " + ", ".join(f"{name} {ms_:.4f} ms ({by})"
-                              for name, (ms_, by) in bounds.items()))
+        f"{pairs} (pixel, triangle) pairs inside the triangles' bboxes, "
+        f"{active} of {pixels} pixels active with {winners} distinct "
+        f"(image, winner) pairs ({pairs1}, {active1} and {winners1} in its "
+        "first image); bounds " + ", ".join(
+            f"{name} {ms_:.4f} ms ({by})"
+            for name, (ms_, by) in bounds.items()))
 
     # Each kernel's launches on the path that runs it: K1 on the forward
     # render, K2 on the training step, K3 and K4 on rasterize_barycentric.

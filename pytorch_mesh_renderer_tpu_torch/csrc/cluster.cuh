@@ -1,5 +1,5 @@
-// Thread-block cluster helpers shared by the cluster kernels: K1
-// (rasterize_fused_fwd.cu) and K7/K5 (soft_cluster_fwd.cuh).
+// Thread-block cluster helpers shared by the cluster kernels: K1 and K3
+// (rasterize_cluster_fwd.cuh) and K7/K5 (soft_cluster_fwd.cuh).
 
 #pragma once
 

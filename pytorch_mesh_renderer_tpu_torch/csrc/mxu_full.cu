@@ -24,8 +24,8 @@
 // (smallest z, ties to the larger id: the merge is order-free, so the
 // result is the single pass's bit for bit). The variants differ in how
 // the five values of a pair are made:
-//   * prod: `rasterize_pixel` of rasterize_common.cuh unchanged (K1's and
-//     K3's per-pixel loop with its staged rows and per-block cull), the
+//   * prod: `rasterize_pixel` of rasterize_common.cuh unchanged (one CTA
+//     per block, staged rows and a per-block cull), the
 //     split's rows passed as its batch image blockIdx.z; the epilogue makes
 //     its ids global and maps an empty pixel to z = 2;
 //   * tc: per visit and per group of 8 triangles, three m16 tiles of the

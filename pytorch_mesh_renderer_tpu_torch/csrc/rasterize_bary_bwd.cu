@@ -9,9 +9,9 @@
 //
 // Output: the per-triangle table [B, T, 9], zeroed by the caller; column
 // c*3 + k is corner k's coordinate-c clip gradient (c in x, y, w), the
-// JAX package's coordinate-major layout. It is K2 without the attribute
-// part: the math, what bounds it and the warp run reduction are in
-// rasterize_bwd_common.cuh. The atomic order makes the table's last bits
+// JAX package's coordinate-major layout. The math, what bounds it and
+// its warp run reduction are in rasterize_bwd_common.cuh (the closed form
+// is K2's). The atomic order makes the table's last bits
 // vary from run to run.
 
 #include "rasterize_bwd_common.cuh"
@@ -23,9 +23,8 @@ __global__ void __launch_bounds__(kBwdThreads) rasterize_bary_bwd_kernel(
     const float* __restrict__ g_bc, const float4* __restrict__ tri_rows,
     const float* __restrict__ inv_abs_det, float* __restrict__ dtab,
     int num_tris, int pixels) {
-  accumulate_triangle_gradients<false>(ids, bc, g_bc, nullptr, tri_rows,
-                                       inv_abs_det, nullptr, dtab, num_tris,
-                                       0, pixels);
+  accumulate_triangle_gradients(ids, bc, g_bc, tri_rows, inv_abs_det, dtab,
+                                num_tris, pixels);
 }
 
 }  // namespace

@@ -1,11 +1,12 @@
 // Device code shared by the forward hard rasterizers K1
-// (rasterize_fused_fwd.cu) and K3 (rasterize_bary_fwd.cu): the per-block
-// edge cull (`row_may_cover`), the per-pixel test (`consider_row`) and the
-// order of winners (`wins`), and K3's one-CTA-per-block z-buffer loop
-// (`rasterize_pixel`, which S2's production core reuses). The TPU pair
-// shares `_rasterize_chunk_core` (rasterize_pallas.py:265) in the same
-// way. K1 runs the same cull and test in a cluster over a group of blocks
-// (rasterize_fused_fwd.cu) and must give K3's outputs bit for bit.
+// (rasterize_fused_fwd.cu) and K3 (rasterize_bary_fwd.cu), whose one
+// cluster body is rasterize_cluster_fwd.cuh, and by the microbenchmark
+// kernels S2 and S3 (mxu_full.cu, patch_eval.cu): the per-block edge cull
+// (`row_may_cover`), the per-pixel test (`consider_row`) and the order of
+// winners (`wins`), and the one-CTA-per-block z-buffer loop
+// (`rasterize_pixel`), which only S2's production core `prod` runs. The
+// TPU pair shares `_rasterize_chunk_core` (rasterize_pallas.py:265) in the
+// same way.
 //
 // What bounds it: tested brute force, every (pixel, triangle) pair costs a
 // few tens of fp32 operations. At 256x256, batch 4 and 2,464 triangles that

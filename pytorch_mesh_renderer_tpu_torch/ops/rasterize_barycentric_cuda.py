@@ -38,12 +38,18 @@ BWD_LAUNCHES = 0
 
 
 def launch_bary_fwd(table, image_width, image_height, row_offset,
-                    full_height):
+                    full_height, group=0, split=0):
     """Launch the barycentric-only forward kernel (K3) on packed rows.
 
     Args:
       table: [B, T, 16] f32 packed triangle rows (rasterize_cuda.
         pack_rows), CUDA, contiguous, 16-byte aligned.
+      group, split: pixel blocks per side of a cluster's group (1 or 2) and
+        CTAs per cluster (1, 2, 4 or 8); both 0, the default, take the
+        launcher's rule (csrc/rasterize_bary_fwd.cu `choose_launch`).
+        Other values serve only to
+        measure that choice (chip_smoke.py, utils/hard_work.py). The
+        outputs depend on neither.
 
     Returns:
       (ids, barycentrics, z) as rasterize_barycentric_cuda.
@@ -68,7 +74,8 @@ def launch_bary_fwd(table, image_width, image_height, row_offset,
         error = lib.rasterize_bary_fwd(
             table.data_ptr(), ids.data_ptr(), bc.data_ptr(), z.data_ptr(),
             batch, n_tri, image_width, image_height, row_offset,
-            rc.pixel_scale(image_width), rc.pixel_scale(full_height), stream)
+            rc.pixel_scale(image_width), rc.pixel_scale(full_height),
+            int(group), int(split), stream)
     kernels.check_cuda_error(lib, error, "rasterize_bary_fwd launch")
     FWD_LAUNCHES += 1
     return ids, bc, z

@@ -311,8 +311,8 @@ def triangle_gradients_torch(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
     Returns:
       [B, T, 9 + 3A] f32: column c*3 + k is corner k's coordinate-c clip
       gradient (c in x, y, w), column 9 + k*A + a corner k's attribute-a
-      gradient. Each pixel adds its values to its winner's row, in the
-      operation order of the kernels (csrc/rasterize_bwd_common.cuh).
+      gradient. Each pixel adds its values (`pixel_gradient_terms`) to its
+      winner's row.
     """
     batch, n_tri = table.shape[:2]
     n_attr = corner.shape[-1]
@@ -322,10 +322,30 @@ def triangle_gradients_torch(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
                        device=table.device)
     if n_tri == 0:
         return dtab.view(batch, 0, 9 + 3 * n_attr)
+    flat, vals = pixel_gradient_terms(ids, bc, df_dbc, df_dattr, table,
+                                      inv_abs_det, corner)
+    dtab = dtab.index_add(0, flat.reshape(-1),
+                          vals.reshape(-1, vals.shape[-1]))
+    return dtab.view(batch, n_tri, -1)
+
+
+def pixel_gradient_terms(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
+                         corner):
+    """Each pixel's contribution to its winner's row of the per-triangle
+    table, in the operation order of the kernels
+    (csrc/rasterize_bwd_common.cuh). Arguments as triangle_gradients_torch
+    (T >= 1).
+
+    Returns:
+      (rows [B, H, W] i64: the winner's row b*T + id of the flattened
+      table; values [B, H, W, 9 + 3A] f32, zero at inactive pixels).
+    """
+    n_tri = table.shape[1]
+    n_attr = corner.shape[-1]
     b0, b1, b2 = bc.unbind(-1)
     active = ~((ids == 0) & (b0 + b1 + b2 < DEGENERATE_BARYCENTRIC_CUTOFF))
-    flat = (torch.arange(batch, device=ids.device)[:, None, None] * n_tri
-            + ids.long())  # [B, H, W] rows of the flattened table
+    flat = (torch.arange(ids.shape[0], device=ids.device)[:, None, None]
+            * n_tri + ids.long())  # [B, H, W] rows of the flattened table
     m = table.reshape(-1, TRI_COLS)[flat].unbind(-1)  # m[i*3 + c]
     inv = inv_abs_det.reshape(-1)[flat]
     g0, g1, g2 = df_dbc.unbind(-1)
@@ -341,10 +361,7 @@ def triangle_gradients_torch(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
     vals = [torch.stack([bk[k] * t[c] for c in range(3) for k in range(3)],
                         dim=-1)]
     vals += [bk[k][..., None] * df_dattr for k in range(3)] if n_attr else []
-    vals = torch.where(active[..., None], torch.cat(vals, dim=-1), 0.0)
-    dtab = dtab.index_add(0, flat.reshape(-1),
-                          vals.reshape(-1, vals.shape[-1]))
-    return dtab.view(batch, n_tri, -1)
+    return flat, torch.where(active[..., None], torch.cat(vals, dim=-1), 0.0)
 
 
 def scatter_triangle_gradients(dtab, triangles, vertex_count):
@@ -400,7 +417,7 @@ def launch_fused_bwd(ids, bc, df_dbc, df_dattr, table, inv_abs_det, corner):
             ids.data_ptr(), bc.data_ptr(), df_dbc.data_ptr(),
             df_dattr.data_ptr(), table.data_ptr(), inv_abs_det.data_ptr(),
             corner.data_ptr(), dtab.data_ptr(), batch, n_tri, n_attr,
-            ids[0].numel(), stream)
+            ids.shape[2], ids.shape[1], stream)
     kernels.check_cuda_error(lib, error, "rasterize_fused_bwd launch")
     BWD_LAUNCHES += 1
     return dtab

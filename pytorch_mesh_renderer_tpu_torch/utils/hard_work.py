@@ -1,5 +1,7 @@
-"""Where the hard forward kernel K1's work falls, and what it costs
-(csrc/rasterize_fused_fwd.cu; the cull in csrc/rasterize_common.cuh).
+"""Where the hard kernels' work falls, and what it costs: the forward K1
+(csrc/rasterize_fused_fwd.cu; the cull in csrc/rasterize_common.cuh), the
+backward K2 (csrc/rasterize_fused_bwd.cu) and the barycentric-only pair
+K3 / K4 (csrc/rasterize_bary_fwd.cu, csrc/rasterize_bary_bwd.cu).
 
     python -m pytorch_mesh_renderer_tpu_torch.utils.hard_work   # CUDA host
     python -m pytorch_mesh_renderer_tpu_torch.utils.hard_work --device cpu
@@ -16,15 +18,29 @@ split). `split_forward_torch` is the plain model of the split kernel: the
 plain forward on each residue's rows, merged per pixel by the smaller z,
 then the larger id.
 
-On the card, `main` prints K1's registers, spills and CTAs per SM
-(`soft_work.kernel_report`), its launch and device times at its compiled
-split and at each split tried on the teapot at 256x256 batch 4 (the
-render and training step's shape) and the sphere72 stress mesh at 512x512
-batch 4, its floor (the teapot's table moved off screen, x += 100 w, so
-that every row fails the cull: the stream and the cull alone), then the
-counts. On the CPU it prints the counts only. To compare with an older
-commit, unpack it into `.chipcheck/` (git-ignored), copy this file into it
-and run both in one call: a launcher without a split is timed at its own.
+`bwd_counts` counts the backward's work from the forward's ids and bc:
+active pixels, their distinct winners (the table rows the backward reads
+and writes), the warps that hold one (K4's row-major 32-pixel warps and
+K2's 8x4 pixel warps), the runs of equal
+winner in a row-major warp and the distinct winners of a K2 warp (each
+takes 9 + 3A global atomics), and the distinct (16x16 tile, winner)
+pairs. `warp_gradients_torch` is the plain model of K2's reduction: each
+pixel's terms summed per (warp, winner), then per winner.
+
+On the card, `main` prints each kernel's registers, spills and CTAs per
+SM (`soft_work.kernel_report`) and its launch and device times: K1 at its
+compiled split and at each split tried on the teapot at 256x256 batch 4
+(the render and training step's shape) and the sphere72 stress mesh at
+512x512 batch 4, and on its floor (the teapot's table moved off screen,
+x += 100 w, so that every row fails the cull: the stream and the cull
+alone); K2 with A = 9 on both scenes and on its floor (every pixel
+inactive: ids 0, bc 0); K3 and K4 on the teapot at 256x256 for one image
+and for four, K3 at its launcher's rule and at each group and split
+tried; the device time of the hard training step and of the 4-image
+`rasterize_barycentric` step; then the counts. On the CPU it prints the
+counts only. To compare with an older commit, unpack it into
+`.chipcheck/` (git-ignored), copy this file into it and run both in one
+call: a launcher without a split is timed at its own.
 """
 
 from __future__ import annotations
@@ -40,7 +56,21 @@ SPLITS = (2, 4, 8)
 # name -> (batch, image side, sphere resolution or None for the teapot).
 SCENES = {"teapot 256": (4, 256, None), "sphere72 512": (4, 512, 72)}
 GROUP = 2  # pixel blocks per side of a K1 cluster's group
+# The groups of pixel blocks per side that K3's cluster may cover.
+GROUPS = (1, 2)
 KERNEL = "rasterize_fused_fwd_kernel"
+# The kernels' names in the build log and the profiler.
+KERNELS = {"k1": KERNEL, "k2": "rasterize_fused_bwd_kernel",
+           "k3": "rasterize_bary_fwd_kernel", "k4": "rasterize_bary_bwd_kernel"}
+TILE = 16  # the forward's pixel block, bwd_counts' tiles
+WARP = 32
+# K2's warp: an 8 wide, 4 high pixel block (csrc/rasterize_fused_bwd.cu).
+K2_WARP = (8, 4)
+# step_profiles' label of the hard training step.
+TRAIN_STEP = "hard training step"
+# The attribute count of the render's rasterizer call (normals, positions,
+# diffuse), at which K2 is timed.
+RENDER_ATTRS = 9
 
 
 def _f32(value, device):
@@ -178,6 +208,109 @@ def split_forward_torch(clip_vertices, attributes, triangles, width, height,
     return ids.clamp(min=0).to(torch.int32), bc, attrs, z
 
 
+def active_pixels(ids, bc):
+    """[B, H, W] bool: the pixels whose terms the backward kernels sum
+    (not id 0 with a barycentric sum below 0.9, in the kernels' f32
+    order)."""
+    from ..ops.barycentric import DEGENERATE_BARYCENTRIC_CUTOFF
+
+    b0, b1, b2 = bc.unbind(-1)
+    return ~((ids == 0) & (b0 + b1 + b2 < DEGENERATE_BARYCENTRIC_CUTOFF))
+
+
+def _blocks(per_pixel, fill, width=TILE, height=TILE):
+    """[B, H, W] -> [B, blocks, width * height]: each width x height block's
+    pixels in row-major order (blocks row-major over the image), the image
+    padded with `fill`."""
+    batch, rows, cols = per_pixel.shape
+    padded = torch.nn.functional.pad(
+        per_pixel, (0, -cols % width, 0, -rows % height), value=fill)
+    nby, nbx = padded.shape[1] // height, padded.shape[2] // width
+    return padded.view(batch, nby, height, nbx, width).permute(
+        0, 1, 3, 2, 4).reshape(batch, nby * nbx, height * width)
+
+
+def _heads(lanes):
+    """[..., n] winners per lane (-1 inactive) -> bool, the first lane of
+    each run of equal winners that holds an active pixel."""
+    head = torch.ones_like(lanes, dtype=torch.bool)
+    head[..., 1:] = lanes[..., 1:] != lanes[..., :-1]
+    return head & (lanes >= 0)
+
+
+def bwd_counts(ids, bc):
+    """Where the backward's work falls on the forward's ids [B, H, W] and
+    bc [B, H, W, 3]: {"per_image": [{...}, ...], "total": {...}} with, per
+    image, `pixels`, `active_pixels`, `winners` (the distinct winners of
+    its active pixels: the table rows the backward writes and whose
+    packed rows it reads); in row-major warps of 32 pixels
+    (K4's) `row_warps`, `row_warps_active` and
+    `row_runs`, the runs of equal winner among active lanes (one global
+    atomic per column each); in K2's warps, 8x4 pixel blocks,
+    `warps_active` and `warp_winners`, the distinct
+    (warp, winner) pairs (one global atomic per column each); and per
+    16x16 tile `tiles`, `tiles_active`, `tile_winners`, the distinct
+    (tile, winner) pairs, and `busiest_tile_winners`."""
+    batch = ids.shape[0]
+    winner = torch.where(active_pixels(ids, bc), ids.long(), -1)
+    rows = winner.reshape(batch, -1)
+    rows = torch.nn.functional.pad(rows, (0, -rows.shape[1] % WARP),
+                                   value=-1).view(batch, -1, WARP)
+    tiles = _blocks(winner, -1)
+    warps = _blocks(winner, -1, *K2_WARP)
+    tile_distinct = _heads(tiles.sort(-1).values).sum(-1)  # [B, tiles]
+    per_image = {
+        "pixels": torch.full((batch,), winner[0].numel()),
+        "active_pixels": (winner >= 0).sum((1, 2)),
+        "winners": _heads(winner.reshape(batch, -1).sort(-1).values).sum(
+            -1),
+        "row_warps": torch.full((batch,), rows.shape[1]),
+        "row_warps_active": (rows >= 0).any(-1).sum(-1),
+        "row_runs": _heads(rows).sum((1, 2)),
+        "warps_active": (warps >= 0).any(-1).sum(-1),
+        "warp_winners": _heads(warps.sort(-1).values).sum((1, 2)),
+        "tiles": torch.full((batch,), tiles.shape[1]),
+        "tiles_active": (tiles >= 0).any(-1).sum(-1),
+        "tile_winners": tile_distinct.sum(-1),
+        "busiest_tile_winners": tile_distinct.amax(-1)
+        if tile_distinct.numel() else torch.zeros(batch, dtype=torch.long),
+    }
+    images = [{key: int(value[b]) for key, value in per_image.items()}
+              for b in range(batch)]
+    total = {key: (max if key.startswith("busiest") else sum)(
+        image[key] for image in images) for key in per_image}
+    return {"per_image": images, "total": total}
+
+
+def warp_gradients_torch(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
+                         corner):
+    """The plain model of K2's reduction: each active pixel's terms
+    (`rasterize_cuda.pixel_gradient_terms`) summed per (warp, winner), a
+    warp an 8x4 pixel block, then each sum added to its winner's row.
+    Arguments and result as `rasterize_cuda.triangle_gradients_torch`."""
+    from ..ops import rasterize_cuda as rc
+
+    batch, n_tri = table.shape[:2]
+    width = 9 + 3 * corner.shape[-1]
+    dtab = torch.zeros(batch * n_tri, width, dtype=torch.float32,
+                       device=table.device)
+    if n_tri == 0:
+        return dtab.view(batch, 0, width)
+    rows, vals = rc.pixel_gradient_terms(ids, bc, df_dbc, df_dattr, table,
+                                         inv_abs_det, corner)
+    keep = _blocks(active_pixels(ids, bc), False, *K2_WARP).reshape(-1)
+    warp_rows = _blocks(rows, 0, *K2_WARP)
+    warp = torch.arange(batch * warp_rows.shape[1], device=rows.device)
+    key = torch.stack([warp[:, None].expand(-1, WARP).reshape(-1),
+                       warp_rows.reshape(-1)], -1)
+    pairs, pair = torch.unique(key[keep], dim=0, return_inverse=True)
+    terms = torch.stack([_blocks(vals[..., c], 0.0, *K2_WARP)
+                         for c in range(width)], -1).reshape(-1, width)[keep]
+    sums = torch.zeros(len(pairs), width, dtype=torch.float32,
+                       device=table.device).index_add(0, pair, terms)
+    return dtab.index_add(0, pairs[:, 1], sums).view(batch, n_tri, width)
+
+
 def scene_tables(name, device):
     """(clip [B, V, 4], attributes [B, V, 9], triangles, size) of a scene
     of SCENES: bench.py's scene (utils/scenes.py) with the attributes that
@@ -201,32 +334,47 @@ def off_screen(clip):
         torch.zeros_like(clip[..., 0])] * 3, -1)
 
 
-def takes_split():
-    """Whether this tree's `launch_fused_fwd` takes a split."""
-    from ..ops import rasterize_cuda as rc
+def takes_split(launcher="launch_fused_fwd", module="rasterize_cuda"):
+    """Whether this tree's launcher takes a split."""
+    import importlib
 
-    return "split" in inspect.signature(rc.launch_fused_fwd).parameters
+    ops = importlib.import_module(f"..ops.{module}", __package__)
+    return "split" in inspect.signature(getattr(ops, launcher)).parameters
+
+
+def report_names(log, key):
+    """The names by which soft_work.kernel_report finds kernel `key` (of
+    KERNELS) in the build log `log`: one per instance of K3's template
+    (its mangled names end in ILi<group>E), else KERNELS[key]."""
+    if key not in KERNELS:
+        return []
+    instances = [f"{KERNELS[key]}ILi{g}E" for g in GROUPS]
+    found = [name for name in instances if name in log]
+    return found or [KERNELS[key]]
+
+
+def time_launch(run, kernel, device, iters=20):
+    """(launch ms by CUDA events, device ms by torch.profiler of the
+    kernels whose name holds `kernel`) of `run`. Where the profiler
+    records no kernel, the device ms are those of the whole launch by CUDA
+    events (common.device_profile)."""
+    from ..microbench import common
+
+    launch_ms = common.wall_ms(run, device, iters)
+    by_name, total, _ = common.device_profile(run, iters=10)
+    device_ms = (total if common.EVENTS_ONLY in by_name else
+                 sum(t for name, t in by_name.items() if kernel in name))
+    return launch_ms, device_ms
 
 
 def time_k1(table, corner, size, split=0, iters=20):
-    """(launch ms by CUDA events, K1's device ms by torch.profiler) at
-    size x size; split 0 is the kernel's own. Where the profiler records
-    no kernel, the device ms are those of the whole launch by CUDA events
-    (common.device_profile)."""
-    from ..microbench import common
+    """time_launch of K1 at size x size; split 0 is the kernel's own."""
     from ..ops import rasterize_cuda as rc
 
     extra = {"split": split} if split else {}
-
-    def run():
-        return rc.launch_fused_fwd(table, corner, size, size, 0, size, False,
-                                   **extra)
-
-    launch_ms = common.wall_ms(run, table.device, iters)
-    by_name, total, _ = common.device_profile(run, iters=10)
-    device = (total if common.EVENTS_ONLY in by_name else
-              sum(t for name, t in by_name.items() if KERNEL in name))
-    return launch_ms, device
+    return time_launch(lambda: rc.launch_fused_fwd(
+        table, corner, size, size, 0, size, False, **extra), KERNEL,
+        table.device, iters)
 
 
 def k1_times(device):
@@ -254,6 +402,140 @@ def k1_times(device):
     return lines
 
 
+def bwd_operands(name, device, batch=None, seed=5):
+    """K2's operands on a scene of SCENES (its first `batch` images): the
+    forward's ids and bc (K1 on a card, the plain forward on the CPU: the
+    same bits), cotangents df/dbc and df/dattr (A = RENDER_ATTRS) drawn
+    from a seeded generator, and the packed tables. Returns (ids, bc,
+    df_dbc, df_dattr, table, inv_abs_det, corner) and the image side."""
+    from ..ops import rasterize_cuda as rc
+
+    clip, attrs, tris, size = scene_tables(name, device)
+    clip, attrs = clip[:batch], attrs[:batch]
+    table, inv_abs_det = rc.pack_rows(clip, tris, True)
+    corner = rc.pack_corner_attributes(attrs, tris)
+    if device.type == "cuda":
+        ids, bc, _ = rc.launch_fused_fwd(table, corner, size, size, 0, size,
+                                         False)
+    else:
+        ids, bc, _ = rc.forward_torch_packed(table, corner, size, size, 0,
+                                             size, False)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=device, generator=rng)
+    df_dbc = torch.randn(tuple(bc.shape), **f32)
+    df_dattr = torch.randn(tuple(ids.shape) + (attrs.shape[-1],), **f32)
+    return (ids, bc, df_dbc, df_dattr, table, inv_abs_det, corner), size
+
+
+def k2_times(device):
+    """[{scene, ...}] of K2 with A = RENDER_ATTRS on each scene of SCENES:
+    time_launch's pair on the forward's ids and bc, and on its floor, the
+    same operands with every pixel inactive (ids 0, bc 0: reading ids and
+    bc alone)."""
+    from ..ops import rasterize_cuda as rc
+
+    lines = []
+    for name in SCENES:
+        ops, _ = bwd_operands(name, device)
+        floor = (torch.zeros_like(ops[0]), torch.zeros_like(ops[1])) + ops[2:]
+        times = {label: time_launch(lambda o=o: rc.launch_fused_bwd(*o),
+                                    KERNELS["k2"], device)
+                 for label, o in (("active", ops),
+                                  ("floor (every pixel inactive)", floor))}
+        lines.append({"kernel": "rasterize_fused_bwd", "scene": name,
+                      "attributes": ops[6].shape[-1],
+                      "launch_and_device_ms": times})
+    return lines
+
+
+def k34_times(device):
+    """[{kernel, scene, images, launch_and_device_ms}] of K3 and K4 on each
+    scene of SCENES for one image and for all its images: K3 at its
+    launcher's rule and, where the launcher takes them, at each group of
+    GROUPS and split of SPLITS; K4 on K3's ids and bc with df/dbc from a
+    seeded generator."""
+    configs = [(0, 0)]
+    if takes_split("launch_bary_fwd", "rasterize_barycentric_cuda"):
+        configs += [(g, s) for g in GROUPS for s in SPLITS]
+    lines = []
+    for name in SCENES:
+        clip, _, tris, size = scene_tables(name, device)
+        for batch in sorted({1, clip.shape[0]}):
+            lines += _k34_lines(name, clip[:batch], tris, size, configs)
+    return lines
+
+
+def _k34_lines(name, clip, tris, size, configs):
+    """k34_times' two lines for one scene and batch."""
+    from ..ops import rasterize_barycentric_cuda as rb
+    from ..ops import rasterize_cuda as rc
+
+    device = clip.device
+    batch = clip.shape[0]
+    table, inv_abs_det = rc.pack_rows(clip, tris, True)
+    times = {}
+    for group, split in configs:
+        extra = {"group": group, "split": split} if split else {}
+        label = (f"group {group} split {split}" if split
+                 else "launcher's rule")
+        times[label] = time_launch(lambda e=extra: rb.launch_bary_fwd(
+            table, size, size, 0, size, **e), KERNELS["k3"], device)
+    ids, bc, _ = rb.launch_bary_fwd(table, size, size, 0, size)
+    rng = torch.Generator(device=device).manual_seed(5)
+    df_dbc = torch.randn(tuple(bc.shape), dtype=torch.float32,
+                         device=device, generator=rng)
+    return [{"kernel": "rasterize_bary_fwd", "scene": name, "images": batch,
+             "launch_and_device_ms": times},
+            {"kernel": "rasterize_bary_bwd", "scene": name, "images": batch,
+             "launch_and_device_ms": time_launch(
+                 lambda: rb.launch_bary_bwd(ids, bc, df_dbc, table,
+                                            inv_abs_det),
+                 KERNELS["k4"], device)}]
+
+
+def step_profiles(device, name="teapot 256"):
+    """{step: (device ms per call, kernels per call, {kernel: ms})} by
+    torch.profiler over 10 calls of the hard training step (render, loss
+    mean(rgb^2), backward to the vertices: K1 and K2) and of the 4-image
+    `rasterize_barycentric` step (one image a call, a seeded bc cotangent,
+    backward: K3 and K4) on `name`."""
+    from ..microbench import common
+    from ..models import mesh_renderer
+    from ..ops import rasterize as rasterize_ops
+    from . import scenes
+
+    batch, size, sphere = SCENES[name]
+    scene = scenes.build_scene(batch, device, sphere_resolution=sphere)
+    args = [scene[k] for k in ("triangles", "normals", "diffuse", "eye",
+                               "center", "up", "lights", "intensities")]
+    clip = scenes.clip_vertices(scene, size)
+    rng = torch.Generator(device=device).manual_seed(5)
+    weights = torch.randn((size, size, 3), dtype=torch.float32,
+                          device=device, generator=rng)
+
+    def train_step():
+        vertices = scene["vertices"].detach().requires_grad_(True)
+        images = mesh_renderer.render(vertices, *args, size, size)
+        torch.mean(images[..., :3] ** 2).backward()
+
+    def bary_step():
+        c = clip.detach().clone().requires_grad_(True)
+        out = [rasterize_ops.rasterize_barycentric(
+            c[b], scene["triangles"], size, size) for b in range(batch)]
+        sum((bc * weights).sum() for _, bc, _ in out).backward()
+
+    profiles = {}
+    for label, fn in ((TRAIN_STEP, train_step),
+                      (f"rasterize_barycentric x {batch} images + backward",
+                       bary_step)):
+        by_name, total, count = common.device_profile(fn, iters=10)
+        ours = {kernel: sum(t for n, t in by_name.items() if kernel in n)
+                for kernel in KERNELS.values()}
+        profiles[label] = (total, count, {k: t for k, t in ours.items()
+                                          if t > 0.0})
+    return profiles
+
+
 def counts(device):
     """{scene: count_summary} for each scene of SCENES and the floor."""
     from ..ops import rasterize_cuda as rc
@@ -269,18 +551,34 @@ def counts(device):
     return out
 
 
+def bwd_scene_counts(device):
+    """{scene: bwd_counts} on the forward's ids and bc: the teapot 256x256
+    batch 4, and on a card sphere72 512x512 batch 4 too (the plain forward
+    takes minutes there on the CPU)."""
+    names = SCENES if device.type == "cuda" else ["teapot 256"]
+    return {name: bwd_counts(*bwd_operands(name, device)[0][:2])
+            for name in names}
+
+
 def main(argv=None):
     import argparse
     import subprocess
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="cuda: build, report and time K1, then count; "
-                        "cpu: count only")
+                        help="cuda: build, report and time the kernels, "
+                        "then count; cpu: count only")
+    parser.add_argument("--kernels", nargs="+", default=list(KERNELS) + [
+        "steps"], choices=list(KERNELS) + ["steps"],
+                        help="what to time on the card (k3 and k4 go "
+                        "together)")
     args = parser.parse_args(argv)
     if args.device == "cpu":
-        for name, summary in counts(torch.device("cpu")).items():
+        cpu = torch.device("cpu")
+        for name, summary in counts(cpu).items():
             print(json.dumps({name: summary}), flush=True)
+        for name, summary in bwd_scene_counts(cpu).items():
+            print(json.dumps({name + " backward": summary}), flush=True)
         return
     if not torch.cuda.is_available():
         raise SystemExit("hard_work: needs a CUDA device (or --device cpu)")
@@ -292,12 +590,28 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    print(json.dumps({KERNEL: soft_work.kernel_report(
-        kernels.build().log, KERNEL)}), flush=True)
-    for line in k1_times(dev):
+    log = kernels.build().log
+    for key in args.kernels:
+        for name in report_names(log, key):
+            print(json.dumps({name: soft_work.kernel_report(log, name)}),
+                  flush=True)
+    lines = []
+    if "k1" in args.kernels:
+        lines += k1_times(dev)
+    if "k2" in args.kernels:
+        lines += k2_times(dev)
+    if "k3" in args.kernels or "k4" in args.kernels:
+        lines += k34_times(dev)
+    for line in lines:
         print(json.dumps(line), flush=True)
+    if "steps" in args.kernels:
+        for label, profile in step_profiles(dev).items():
+            print(json.dumps({"step": label, "device_ms_kernels_and_ours":
+                              profile}), flush=True)
     for name, summary in counts(dev).items():
         print(json.dumps({name: summary}), flush=True)
+    for name, summary in bwd_scene_counts(dev).items():
+        print(json.dumps({name + " backward": summary}), flush=True)
     print(card, flush=True)
 
 

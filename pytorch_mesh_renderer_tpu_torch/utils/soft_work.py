@@ -196,15 +196,10 @@ def fit_table(device, size=128, views=4):
             sc.make_params(FIT_SIGMA, 1.0, BLUR, 0, device))
 
 
-def kernel_report(log, name="soft_bwd_kernel"):
+def ptxas_report(log, name):
     """{registers, stack, spill_stores, spill_loads, smem} of the kernel
-    whose mangled name holds `name`, from an `nvcc -Xptxas -v` log, and
-    `blocks_per_sm`: cudaOccupancyMaxActiveBlocksPerMultiprocessor where
-    the library exports `<kernel>_blocks_per_sm` (the name without
-    `_kernel`), else Hopper's occupancy rule on the registers and shared
-    memory (`occupancy_source` says which)."""
-    from . import kernels
-
+    whose mangled name holds `name`, from an `nvcc -Xptxas -v` log; smem
+    is 0 where ptxas reports none (a kernel without shared memory)."""
     report = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -213,18 +208,30 @@ def kernel_report(log, name="soft_bwd_kernel"):
                 frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes "
                                   r"spill stores, (\d+) bytes spill loads",
                                   follow)
-                used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
-                                 follow)
+                used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes "
+                                 r"smem)?", follow)
                 if frame:
                     report.update(stack=int(frame[1]),
                                   spill_stores=int(frame[2]),
                                   spill_loads=int(frame[3]))
                 if used:
                     report.update(registers=int(used[1]),
-                                  smem=int(used[2]))
+                                  smem=int(used[2] or 0))
             break
     if "registers" not in report:
         raise RuntimeError(f"no ptxas report for {name} in the build log")
+    return report
+
+
+def kernel_report(log, name="soft_bwd_kernel"):
+    """ptxas_report of the kernel whose mangled name holds `name`, and
+    `blocks_per_sm`: cudaOccupancyMaxActiveBlocksPerMultiprocessor where
+    the library exports `<kernel>_blocks_per_sm` (the name without
+    `_kernel`), else Hopper's occupancy rule on the registers and shared
+    memory (`occupancy_source` says which)."""
+    from . import kernels
+
+    report = ptxas_report(log, name)
     lib = kernels.load_library()
     entry = name.removesuffix("_kernel") + "_blocks_per_sm"
     if hasattr(lib, entry):

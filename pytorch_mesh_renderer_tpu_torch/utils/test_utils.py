@@ -448,18 +448,38 @@ def hard_splits():
     return (0,) + hard_work.SPLITS
 
 
+def bary_shapes():
+    """(0, 0) (K3's launcher rule) and each (group, split) of its cluster
+    that utils/hard_work.py tries."""
+    from . import hard_work
+
+    return ((0, 0),) + tuple((group, split) for group in hard_work.GROUPS
+                             for split in hard_work.SPLITS)
+
+
 def _split(split):
     """A launcher's split keyword: none for 0, the kernel's own."""
     return {"split": split} if split else {}
 
 
+def same_bits(a, b):
+    """Equal shapes and bits (-0.0 and 0.0 differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 def compare_k1_splits(table, corner, width, height, row_offset=0,
-                      full_height=None, splits=(0,)):
+                      full_height=None, splits=(0,), bary=((0, 0),)):
     """K1 on packed tables (CUDA tensors) at each of `splits` (clusters of
-    CTAs per pixel block; 0 is its compiled one): every split must give the
-    first's (ids, bc, attributes, z) bit for bit, and its ids, bc and z
-    must equal K3's, the one-CTA-per-block design, bit for bit. Raises
-    AssertionError otherwise; returns K1's outputs at splits[0]."""
+    CTAs per group of pixel blocks; 0 is its compiled one): every split
+    must give the first's (ids, bc, attributes, z) bit for bit, and K3 at
+    each (group, split) of `bary` ((0, 0) is its launcher's rule) must give
+    K1's ids, bc and z bit for bit: one cluster body, with and without
+    attributes. Raises AssertionError otherwise; returns K1's outputs at
+    splits[0]."""
     from ..ops import rasterize_barycentric_cuda as rb
     from ..ops import rasterize_cuda as rc
 
@@ -469,14 +489,45 @@ def compare_k1_splits(table, corner, width, height, row_offset=0,
     for split in splits[1:]:
         other = rc.launch_fused_fwd(table, corner, width, height, row_offset,
                                     full_height, True, **_split(split))
-        if not all(torch.equal(a, b) for a, b in zip(other, k1)):
+        if not all(same_bits(a, b) for a, b in zip(other, k1)):
             raise AssertionError(f"rasterize_fused_fwd at split {split} "
                                  f"differs from split {splits[0]}")
-    k3 = rb.launch_bary_fwd(table, width, height, row_offset, full_height)
-    if not all(torch.equal(a, b) for a, b in zip(k3, (k1[0], k1[1], k1[3]))):
-        raise AssertionError("rasterize_fused_fwd's ids, bc or z differ "
-                             "from rasterize_bary_fwd's")
+    for group, split in bary:
+        k3 = rb.launch_bary_fwd(table, width, height, row_offset,
+                                full_height, group, split)
+        if not all(same_bits(a, b) for a, b in zip(k3, (k1[0], k1[1],
+                                                         k1[3]))):
+            raise AssertionError(
+                "rasterize_fused_fwd's ids, bc or z differ from "
+                f"rasterize_bary_fwd's at group {group}, split {split}")
     return k1
+
+
+def ties_scene(seed=3, batch=2, tri_count=160, width=40, height=36):
+    """Small triangles with their own corners on pixel centres, each at one
+    depth of {0.5, 0.25, 0.0, -0.0, -0.5} (w = 1), so that many pixels
+    see equal z from several triangles: exact ties, +0.0 against -0.0 too.
+    The image is not a whole number of 16x16 blocks. Returns numpy arrays
+    (clip [B, 3T, 4], triangles [T, 3] i32, attributes [B, 3T, 4]) and
+    width, height."""
+    f32 = np.float32
+    rng = np.random.RandomState(seed)
+    first = np.stack([rng.randint(0, width, (batch, tri_count)),
+                      rng.randint(0, height, (batch, tri_count))], -1)
+    corners = first[:, :, None, :] + rng.randint(-7, 8, (batch, tri_count,
+                                                        3, 2))
+    corners[:, :, 0] = first
+    scale = np.array([f32(2.0 / width), f32(2.0 / height)], f32)
+    ndc = ((corners + 0.5) * scale - 1.0).astype(f32)
+    depth = np.array([0.5, 0.25, 0.0, -0.0, -0.5], f32)[
+        rng.randint(0, 5, (batch, tri_count))]
+    clip = np.concatenate([
+        ndc, np.broadcast_to(depth[:, :, None, None], ndc.shape[:3] + (1,)),
+        np.ones(ndc.shape[:3] + (1,), f32)], -1)
+    clip = clip.reshape(batch, 3 * tri_count, 4)
+    tris = np.arange(3 * tri_count, dtype=np.int32).reshape(tri_count, 3)
+    attrs = rng.randn(batch, 3 * tri_count, 4).astype(f32)
+    return clip, tris, attrs, width, height
 
 
 def compare_soft_forward(scene, row_offset=0, full_height=None, splits=(0,),

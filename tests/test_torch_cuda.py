@@ -13,10 +13,15 @@ ids must be equal and bc, z and attributes agree to 1e-6. The backward
 kernels (K2, K4) sum per-pixel terms into per-triangle rows with atomic
 adds in an order that changes from run to run: their gradients agree with
 the plain versions' to 1e-5 of the plain tensor's max |value|, per tensor,
-the JAX suite's CPU gate between its two backward backends. K1 runs as a
+the JAX suite's CPU gate between its two backward backends; K2 at A = 0,
+1, 2, 9, 12, 13 and 40 (one to four rounds of its registers, float, float2
+and float4 loads), on the teapot and sphere72, on row strips, the empty
+mesh and every pixel inactive (an exactly zero table). K1 runs as a
 cluster of CTAs per group of pixel blocks whose partial winners merge in
-any order: at each split tried its outputs are bit for bit the same, and
-its ids, bc and z equal K3's (one CTA per block) bit for bit.
+any order: at each split tried its outputs are bit for bit the same. K3
+is the same cluster body without attributes: at its launcher's rule and
+at every group and split, for one image and four, its ids, bc and z equal
+K1's bit for bit and the plain version's.
 
 The soft kernels (K5-K8) against their plain versions: forward rgb within
 2e-5 abs and 1e-4 rel (the JAX suite's Pallas-vs-XLA gate) and alpha within
@@ -179,11 +184,12 @@ def test_k1_at_every_split_equals_the_plain_version_and_k3(dev, scene):
         clip, attrs, tris, width, height = _scene(scene, dev)
     table = rc.pack_rows(clip, tris, False)[0]
     corner = rc.pack_corner_attributes(attrs, tris)
-    splits = test_utils.hard_splits()
-    before = rc.LAUNCHES
+    splits, shapes = test_utils.hard_splits(), test_utils.bary_shapes()
+    before = (rc.LAUNCHES, rb.FWD_LAUNCHES)
     k1 = test_utils.compare_k1_splits(table, corner, width, height,
-                                      splits=splits)
-    assert rc.LAUNCHES == before + len(splits)
+                                      splits=splits, bary=shapes)
+    assert (rc.LAUNCHES, rb.FWD_LAUNCHES) == (before[0] + len(splits),
+                                              before[1] + len(shapes))
     _assert_same(k1, rc.forward_torch_packed(table, corner, width, height,
                                              0, height, True))
     assert bool((k1[0] > 0).any())
@@ -193,17 +199,57 @@ def test_k1_splits_on_row_strips_and_the_empty_mesh(dev):
     clip, attrs, tris, _, _ = _scene("random9", dev)
     corner = rc.pack_corner_attributes(attrs, tris)
     table = rc.pack_rows(clip, tris, False)[0]
-    splits = test_utils.hard_splits()
-    full = test_utils.compare_k1_splits(table, corner, 48, 40, splits=splits)
+    splits, shapes = test_utils.hard_splits(), test_utils.bary_shapes()
+    full = test_utils.compare_k1_splits(table, corner, 48, 40, splits=splits,
+                                        bary=shapes)
     for i in range(2):
         strip = test_utils.compare_k1_splits(table, corner, 48, 20, 20 * i,
-                                             40, splits)
+                                             40, splits, shapes)
         for s, f in zip(strip, full):
             assert torch.equal(s, f[:, 20 * i:20 * (i + 1)])
     empty = test_utils.compare_k1_splits(table[:, :0].contiguous(),
                                          corner[:, :0].contiguous(), 48, 40,
-                                         splits=splits)
+                                         splits=splits, bary=shapes)
     assert not bool(empty[0].any()) and bool((empty[3] == 1.0).all())
+
+
+def _hard_scene(name, dev):
+    """_scene's scenes, plus "ties" (test_utils.ties_scene: exact depth
+    ties, +0.0 against -0.0) and "teapot" (256x256, batch 4, A = 9)."""
+    if name == "teapot":
+        clip, attrs, tris, size = hard_work.scene_tables("teapot 256", dev)
+        return clip, attrs, tris, size, size
+    if name == "ties":
+        clip, tris, attrs, width, height = test_utils.ties_scene()
+        return (torch.tensor(clip, device=dev), torch.tensor(attrs, device=dev),
+                torch.tensor(tris, device=dev), width, height)
+    return _scene(name, dev)
+
+
+@pytest.mark.parametrize("scene", ["cube", "random9", "snapped", "ties",
+                                   "teapot"])
+@pytest.mark.parametrize("images", [1, 4])
+def test_k3_at_every_group_and_split_equals_k1_and_the_plain_version(
+        dev, scene, images):
+    """K3 is K1's cluster body without attributes: at its launcher's rule
+    and at each group and split tried, for one image and for a batch
+    (the scene's images repeated up to `images`), its ids, bc and z equal
+    K1's bit for bit and the plain version's."""
+    clip, attrs, tris, width, height = _hard_scene(scene, dev)
+    reps = -(-images // clip.shape[0])
+    clip = clip.repeat(reps, 1, 1)[:images].contiguous()
+    attrs = attrs.repeat(reps, 1, 1)[:images].contiguous()
+    table = rc.pack_rows(clip, tris, False)[0]
+    corner = rc.pack_corner_attributes(attrs, tris)
+    shapes = test_utils.bary_shapes()
+    before = rb.FWD_LAUNCHES
+    k1 = test_utils.compare_k1_splits(table, corner, width, height,
+                                      bary=shapes)
+    assert rb.FWD_LAUNCHES == before + len(shapes)
+    plain = rb.rasterize_barycentric_torch(clip, tris, width, height)
+    for k, p in zip((k1[0], k1[1], k1[3]), plain):
+        assert torch.equal(k, p)
+    assert bool((k1[0] > 0).any())
 
 
 def test_render_backward_launches_kernel_once(dev):
@@ -286,6 +332,65 @@ def test_fused_backward_kernel_matches_plain_version(dev, scene):
                                                clip.shape[1]),
         rc.rasterize_interpolate_backward_torch(*operands, tris,
                                                 clip.shape[1]))
+
+
+@pytest.mark.parametrize("attr_count", [0, 1, 2, 9, 12, 13, 40])
+def test_fused_backward_at_every_attribute_count(dev, attr_count):
+    """K2 reduces kAttrChunk (12) attributes a round: A = 13 and 40 take
+    two and four rounds of kAttrChunk attributes held in registers;
+    A = 40 and 12
+    load the cotangents as float4, A = 2 as float2, the rest one float a
+    load."""
+    clip, _, tris, width, height = _scene("random9", dev)
+    attrs = torch.tensor(np.random.RandomState(attr_count).randn(
+        2, 24, attr_count), dtype=torch.float32, device=dev)
+    table, inv_abs_det = rc.pack_rows(clip, tris, True)
+    corner = rc.pack_corner_attributes(attrs, tris)
+    ids, bc, _ = rc.launch_fused_fwd(table, corner, width, height, 0, height,
+                                     False)
+    operands = (ids, bc, *_cotangents(ids, attr_count), table, inv_abs_det,
+                corner)
+    kernel_table = rc.launch_fused_bwd(*operands)
+    plain_table = rc.triangle_gradients_torch(*operands)
+    assert kernel_table.shape == (2, 30, 9 + 3 * attr_count)
+    assert float(plain_table.abs().max()) > 0.0
+    _assert_grads_close([kernel_table], [plain_table])
+
+
+@pytest.mark.parametrize("scene", ["teapot 256", "sphere72 512"])
+def test_fused_backward_on_the_timed_scenes(dev, scene):
+    """K2 at A = 9 on the scenes utils/hard_work.py times, and on their
+    floor: every pixel inactive (ids 0, bc 0) gives an exactly zero
+    table."""
+    operands, _ = hard_work.bwd_operands(scene, dev)
+    _assert_grads_close([rc.launch_fused_bwd(*operands)],
+                        [rc.triangle_gradients_torch(*operands)])
+    floor = (torch.zeros_like(operands[0]), torch.zeros_like(operands[1]))
+    table = rc.launch_fused_bwd(*floor, *operands[2:])
+    torch.cuda.synchronize()
+    assert not bool(table.any())
+
+
+def test_fused_backward_tables_on_row_strips_and_the_empty_mesh(dev):
+    """K2's tables of two row strips sum to the full image's, and a
+    zero-triangle mesh gives an empty table."""
+    clip, attrs, tris, width, height = _scene("random9", dev)
+    table, inv_abs_det = rc.pack_rows(clip, tris, True)
+    corner = rc.pack_corner_attributes(attrs, tris)
+    ids, bc, _ = rc.launch_fused_fwd(table, corner, width, height, 0, height,
+                                     False)
+    g_bc, g_attr = _cotangents(ids, 9)
+    full = rc.launch_fused_bwd(ids, bc, g_bc, g_attr, table, inv_abs_det,
+                               corner)
+    strips = [rc.launch_fused_bwd(*(t[:, rows].contiguous() for t in (
+        ids, bc, g_bc, g_attr)), table, inv_abs_det, corner)
+        for rows in (slice(0, 20), slice(20, 40))]
+    _assert_grads_close([strips[0] + strips[1]], [full])
+    empty = rc.launch_fused_bwd(ids, bc, g_bc, g_attr,
+                                *(t[:, :0].contiguous() for t in (
+                                    table, inv_abs_det, corner)))
+    torch.cuda.synchronize()
+    assert empty.shape == (2, 0, 36)
 
 
 @pytest.mark.parametrize("scene", ["cube", "random3", "random9", "random16",

@@ -1,6 +1,7 @@
 """PyTorch port: the model of the hard forward kernel K1's split
 (`utils/hard_work.split_forward_torch`) and the count of where its work
-falls (`hard_work.block_keeps`, `kept_counts`, `count_summary`).
+falls (`hard_work.block_keeps`, `kept_counts`, `count_summary`); the same
+for the backward K2 (`hard_work.bwd_counts`, `warp_gradients_torch`).
 
 K1 runs a cluster of kSplit CTAs per pixel block; CTA s tests the rows
 t = s (mod kSplit) alone and the partial winners are merged by the smaller
@@ -27,6 +28,15 @@ pixel the JAX package covers (the Pallas kernel on the random scene,
 rows that K1's cull keeps for that pixel's block, and the cull equals a
 direct scalar evaluation of the kernel's rule
 (`row_may_cover` in csrc/rasterize_common.cuh) in numpy float32.
+
+The backward K2 reduces each winner's terms per warp of 8x4 pixels before
+one global atomic per column: `hard_work.bwd_counts` (active pixels,
+their distinct winners, warps, runs and distinct winners per warp and per 16x16 tile) equals a
+direct count by Python loops, and the plain model of that reduction
+(`hard_work.warp_gradients_torch`) equals the plain backward
+(`triangle_gradients_torch`, one sum per pixel) within 1e-6 of its max
+|value| at A = 0, 1, 9 and 13: the reduction changes only the order of
+f32 sums.
 """
 
 import functools
@@ -43,7 +53,7 @@ from pytorch_mesh_renderer_tpu.ops.rasterize_pallas import (
 from pytorch_mesh_renderer_tpu.ops.rasterize_xla import (
     rasterize_barycentric_xla)
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
-from pytorch_mesh_renderer_tpu_torch.utils import hard_work
+from pytorch_mesh_renderer_tpu_torch.utils import hard_work, test_utils
 
 F32 = np.float32
 
@@ -65,29 +75,7 @@ def _random_scene(seed=0, batch=2, vertex_count=24, tri_count=30,
     return clip, tris, attrs, width, height
 
 
-@functools.cache
-def _ties_scene(seed=3, batch=2, tri_count=160, width=40, height=36):
-    """Small triangles with their own corners on pixel centres, each at one
-    depth of {0.5, 0.25, 0.0, -0.0, -0.5} (w = 1), so that many pixels
-    see equal z from several triangles: exact ties, +0.0 against -0.0 too.
-    The image is not a whole number of 16x16 blocks."""
-    rng = np.random.RandomState(seed)
-    first = np.stack([rng.randint(0, width, (batch, tri_count)),
-                      rng.randint(0, height, (batch, tri_count))], -1)
-    corners = first[:, :, None, :] + rng.randint(-7, 8, (batch, tri_count,
-                                                        3, 2))
-    corners[:, :, 0] = first
-    scale = np.array([F32(2.0 / width), F32(2.0 / height)], F32)
-    ndc = ((corners + 0.5) * scale - 1.0).astype(F32)
-    depth = np.array([0.5, 0.25, 0.0, -0.0, -0.5], F32)[
-        rng.randint(0, 5, (batch, tri_count))]
-    clip = np.concatenate([
-        ndc, np.broadcast_to(depth[:, :, None, None], ndc.shape[:3] + (1,)),
-        np.ones(ndc.shape[:3] + (1,), F32)], -1)
-    clip = clip.reshape(batch, 3 * tri_count, 4)
-    tris = np.arange(3 * tri_count, dtype=np.int32).reshape(tri_count, 3)
-    attrs = rng.randn(batch, 3 * tri_count, 4).astype(F32)
-    return clip, tris, attrs, width, height
+_ties_scene = functools.cache(test_utils.ties_scene)
 
 
 def _scene(name):
@@ -243,3 +231,128 @@ def test_off_screen_floor_table_keeps_no_row():
                                       size, size).any())
     table = rc.pack_rows(hard_work.off_screen(clip), tris, False)[0]
     assert not bool(hard_work.block_keeps(table, size, size).any())
+
+
+# The backward K2 (csrc/rasterize_fused_bwd.cu): where its work falls
+# (`hard_work.bwd_counts`) against a direct count, and the plain model of
+# its reduction per 8x4 warp and winner (`hard_work.warp_gradients_torch`)
+# against the plain backward.
+
+def _forward(scene, attr_count=None):
+    """(clip, triangles, attributes, width, height, ids, bc) of a scene
+    through the plain forward; attributes redrawn with attr_count columns
+    when given."""
+    clip, tris, attrs, width, height = _scene(scene)
+    if attr_count is not None:
+        attrs = np.random.RandomState(attr_count).randn(
+            *attrs.shape[:2], attr_count).astype(F32)
+    ids, bc = rc.rasterize_interpolate_torch(
+        _t(clip), _t(attrs), _t(tris), width, height)[:2]
+    return clip, tris, attrs, width, height, ids, bc
+
+
+def _direct_bwd_counts(ids, bc):
+    """bwd_counts' per-image dicts by Python loops over pixels, lanes,
+    warps and tiles, the activity test in numpy float32 in the kernels'
+    order."""
+    ids, bc = ids.numpy(), bc.numpy()
+    images = []
+    for b in range(ids.shape[0]):
+        height, width = ids[b].shape
+        winner = np.full((height, width), -1)
+        for y, x in np.ndindex(height, width):
+            c = bc[b, y, x]
+            if not (ids[b, y, x] == 0 and (c[0] + c[1]) + c[2] < F32(0.9)):
+                winner[y, x] = ids[b, y, x]
+
+        def blocks(bw, bh):
+            return [[winner[y, x] if y < height and x < width else -1
+                     for y in range(by, by + bh) for x in range(bx, bx + bw)]
+                    for by in range(0, height, bh)
+                    for bx in range(0, width, bw)]
+
+        flat = list(winner.reshape(-1)) + [-1] * (-winner.size % 32)
+        row_warps = [flat[i:i + 32] for i in range(0, len(flat), 32)]
+        warps, tiles = blocks(8, 4), blocks(16, 16)
+        tile_winners = [len({v for v in t if v >= 0}) for t in tiles]
+        images.append({
+            "pixels": winner.size,
+            "active_pixels": int((winner >= 0).sum()),
+            "winners": len({v for v in winner.reshape(-1) if v >= 0}),
+            "row_warps": len(row_warps),
+            "row_warps_active": sum(max(w) >= 0 for w in row_warps),
+            "row_runs": sum(1 for w in row_warps for i, v in enumerate(w)
+                            if v >= 0 and (i == 0 or w[i - 1] != v)),
+            "warps_active": sum(max(w) >= 0 for w in warps),
+            "warp_winners": sum(len({v for v in w if v >= 0})
+                                for w in warps),
+            "tiles": len(tiles),
+            "tiles_active": sum(max(t) >= 0 for t in tiles),
+            "tile_winners": sum(tile_winners),
+            "busiest_tile_winners": max(tile_winners),
+        })
+    return images
+
+
+@pytest.mark.parametrize("scene", ["random", "ties", "empty"])
+def test_backward_counts_equal_a_direct_count(scene):
+    *_, ids, bc = _forward(scene)
+    counts = hard_work.bwd_counts(ids, bc)
+    direct = _direct_bwd_counts(ids, bc)
+    assert counts["per_image"] == direct
+    for key, total in counts["total"].items():
+        values = [image[key] for image in direct]
+        assert total == (max(values) if key.startswith("busiest")
+                         else sum(values))
+    active = counts["total"]["active_pixels"]
+    assert (active == 0) == (scene == "empty")
+    if active:  # winners that K2's 8x4 warps join, and tiles join further
+        total = counts["total"]
+        assert total["tile_winners"] < total["warp_winners"] < total[
+            "row_runs"]
+        assert 0 < total["winners"] <= total["tile_winners"]
+
+
+@pytest.mark.parametrize("scene", ["random", "ties", "empty"])
+def test_backward_writes_only_the_winners_rows(scene):
+    """The rows of the plain backward's table that are not zero are rows
+    of `bwd_counts`' winners, image by image: the rows that chip_smoke.py's
+    K2 and K4 bounds charge."""
+    clip, tris, attrs, width, height, ids, bc = _forward(scene)
+    table, inv_abs_det = rc.pack_rows(_t(clip), _t(tris), True)
+    corner = rc.pack_corner_attributes(_t(attrs), _t(tris))
+    rng = np.random.RandomState(7)
+    plain = rc.triangle_gradients_torch(
+        ids, bc, _t(rng.randn(*bc.shape).astype(F32)),
+        _t(rng.randn(*ids.shape, attrs.shape[-1]).astype(F32)), table,
+        inv_abs_det, corner)
+    active = hard_work.active_pixels(ids, bc)
+    counts = hard_work.bwd_counts(ids, bc)["per_image"]
+    for b in range(ids.shape[0]):
+        winners = set(ids[b][active[b]].tolist())
+        written = set(torch.nonzero(plain[b].abs().amax(-1) > 0)[:, 0]
+                      .tolist())
+        assert written <= winners
+        assert len(winners) == counts[b]["winners"]
+        assert (len(written) > 0) == (scene != "empty")
+
+
+@pytest.mark.parametrize("scene", ["random", "ties", "empty"])
+@pytest.mark.parametrize("attr_count", [0, 1, 9, 13])
+def test_k2_reduction_model_equals_the_plain_backward(scene, attr_count):
+    clip, tris, attrs, width, height, ids, bc = _forward(scene, attr_count)
+    table, inv_abs_det = rc.pack_rows(_t(clip), _t(tris), True)
+    corner = rc.pack_corner_attributes(_t(attrs), _t(tris))
+    rng = np.random.RandomState(5)
+    operands = (ids, bc, _t(rng.randn(*bc.shape).astype(F32)),
+                _t(rng.randn(*ids.shape, attr_count).astype(F32)), table,
+                inv_abs_det, corner)
+    plain = rc.triangle_gradients_torch(*operands)
+    model = hard_work.warp_gradients_torch(*operands)
+    assert model.shape == plain.shape == (2, len(tris), 9 + 3 * attr_count)
+    if scene == "empty":
+        assert plain.numel() == 0
+        return
+    scale = float(plain.abs().max())
+    assert scale > 0.0
+    assert float((model - plain).abs().max()) <= 1e-6 * scale

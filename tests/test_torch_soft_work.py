@@ -17,6 +17,7 @@ so f32 rounding decides none of them.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
@@ -62,3 +63,31 @@ def test_pair_counts_on_a_hand_built_table():
     alone = soft_work.pair_counts(table[:, :1], SIZE, SIZE, sq_blur)
     assert (alone["busy_blocks"], alone["warp_items"],
             alone["busy_warps"]) == (1, 4, 4)
+
+
+# The ptxas report that utils/soft_work.kernel_report and utils/hard_work.py
+# read: a kernel that uses no shared memory prints no "bytes smem" (the
+# backward K2 and K4), and each template instance has its own entry.
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126rasterize_fused_bwd_kernelEPKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126rasterize_fused_bwd_kernelEPKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125rasterize_bary_fwd_kernelILi2EEEvPK6float4' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125rasterize_bary_fwd_kernelILi2EEEvPK6float4
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 79 registers, used 1 barriers, 38944 bytes smem
+"""
+
+
+@pytest.mark.parametrize("name,want", [
+    ("rasterize_fused_bwd_kernel", {"registers": 40, "smem": 0, "stack": 0,
+                                    "spill_stores": 0, "spill_loads": 0}),
+    ("rasterize_bary_fwd_kernelILi2E", {"registers": 79, "smem": 38944,
+                                        "stack": 0, "spill_stores": 8,
+                                        "spill_loads": 4})])
+def test_ptxas_report_reads_kernels_with_and_without_shared_memory(name,
+                                                                   want):
+    assert soft_work.ptxas_report(PTXAS_LOG, name) == want
+    with pytest.raises(RuntimeError, match="no ptxas report"):
+        soft_work.ptxas_report(PTXAS_LOG, "soft_fwd_kernel")
