@@ -45,9 +45,10 @@ and runs these phases, printing one line or more per phase:
                (its table moved off screen, so that no row passes the
                cull) and on sphere72 at 512x512 batch 4; K2's with A = 9
                on the teapot and sphere72 and on its floor (every pixel
-               inactive); K3's and K4's for one teapot image and for four,
-               K3 at its launcher's rule and at each group and split; the
-               K1 cull's counts and where K2's work falls.
+               inactive); K3's and K4's on the teapot and sphere72 for one
+               image and for four, K3 at its launcher's rule and at each
+               group and split, K4 also on its floor; the K1 cull's counts
+               and where K2's work falls.
 
 The soft (SoftRas) renderer's phases follow:
 
@@ -104,7 +105,9 @@ pytorch_mesh_renderer_tpu_torch/microbench/, follow:
                ids with bc and z within 1e-6 and drop no triangle. Then
                each kernel vs its plain version at those shapes: fma,
                prod and patch_eval bit for bit, the tensor-core variants
-               within their modules' tolerances (TC_RTOL, check_tc); and
+               within their modules' tolerances (TC_RTOL, check_tc; tc
+               also on a table whose edges pass through its cull regions'
+               corner pixel centres); and
                each kernel's device time (torch.profiler), its plain
                version's and, for mxu_edge, torch.matmul + sum's.
 
@@ -935,18 +938,27 @@ def microbench_phase(dev, card):
     rel_errors["mxu_full_tc"] = max(z_gap, w_gap / max(
         float(e.abs().max()) for e in tc_pairs[:3]))
     del tc_pairs
+    # The tc cull at knife edges: edges through its regions' corner pixel
+    # centres, where a cull without its margin drops pairs.
+    _, knife_coeff, knife_visits, knife_chunk = mf.make_knife_edge_inputs(dev)
+    knife = mf.check_tc(mf.launch_tc(knife_coeff, knife_visits, knife_chunk),
+                        mf.tc_pairs(knife_coeff, knife_visits, knife_chunk))
     timed("mxu_full_tc", lambda: mf.launch_tc(coeff, visits, chunk),
           lambda: mf.zbuffer_tc_torch(coeff, visits, chunk))
-    # Five functions of K = 8 per boxed pair, three products for 3xTF32.
+    # Five functions of three terms (x, y, 1) per boxed pair, two products
+    # for 3xTF32: the pixel centres are TF32-exact, so B's lo part is zero
+    # and the hi*lo product adds nothing.
     bounds["mxu_full_tc"] = bound_ms(
         coeff.numel() * 4 + outputs,
         n_boxed * mf.INSIDE_OPS + n_inside * mf.TAIL_OPS,
-        3 * 2 * 5 * 8 * n_boxed, PEAK_TF32_PER_S)
+        2 * 2 * 5 * 3 * n_boxed, PEAK_TF32_PER_S)
     log("microbench", f"mxu_full kernels vs plain: prod bit for bit; tc ids "
         f"differ at {id_diff} pixels (each between depths within "
         f"{mf.Z_TOL}), z gap {z_gap:.3g}, edge values {w_gap:.3g} (gate "
         f"{mf.Z_TOL}); {n_boxed} boxed pairs of "
-        f"{visits * chunk * common.N_PIX}, {n_inside} inside")
+        f"{visits * chunk * common.N_PIX}, {n_inside} inside; knife-edge "
+        f"table: ids differ at {knife[0]} pixels, z gap {knife[1]:.3g}, edge "
+        f"values {knife[2]:.3g}")
 
     name = "patch_eval"
     errors[name] = rel_errors[name] = 0.0
@@ -1541,8 +1553,9 @@ def main():
     # compiled split and at each split tried, on the teapot, its floor (the
     # table moved off screen: the stream and the cull alone) and sphere72
     # 512x512 batch 4; K2's with A = 9 on the teapot and sphere72 and on
-    # its floor (every pixel inactive); K3's and K4's for one teapot image
-    # and for four, K3 at its launcher's rule and at each group and split.
+    # its floor (every pixel inactive); K3's and K4's on the teapot and
+    # sphere72 for one image and for four, K3 at its launcher's rule and at
+    # each group and split, K4 also on its floor.
     # Where K1's and K2's work falls.
     for key in hard_work.KERNELS:
         for kernel_name in hard_work.report_names(build.log, key):

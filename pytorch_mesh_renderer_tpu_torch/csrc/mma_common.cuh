@@ -87,4 +87,16 @@ __device__ __forceinline__ void mma_tf32x3(float d[4],
   mma_tf32(d, a_hi, b_hi, d);
 }
 
+// mma_tf32x3 for a B whose lo part is zero (b_lo == 0 on every lane):
+// lo*hi, then hi*hi. The dropped hi*lo product is exactly zero, so the sum
+// is mma_tf32x3's but for the sign of a zero.
+__device__ __forceinline__ void mma_tf32x3_exact_b(float d[4],
+                                                   const uint32_t a_hi[4],
+                                                   const uint32_t a_lo[4],
+                                                   const uint32_t b_hi[2]) {
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(d, a_lo, b_hi, zero);
+  mma_tf32(d, a_hi, b_hi, d);
+}
+
 }  // namespace

@@ -18,18 +18,39 @@
 // winner, so the per-pixel arithmetic is a few tens of operations and the
 // cost is reading the pixel's inputs (ids and bc of every pixel; g, gattr
 // of the active ones) and reducing 9 + 3A values per active pixel into
-// the per-triangle table, all of a neighbourhood on the same rows.
+// the per-triangle table, all of a neighbourhood on the same rows. On the
+// 256x256 batch-4 teapot only 33,118 of 262,144 pixels are active: 1,219
+// of 8,192 warps of 8x4 pixels hold one, with 7,126 distinct (warp,
+// winner) pairs (utils/hard_work.py `bwd_counts`).
 //
-// This header holds what the two share: the activity test, the closed
-// form (`clip_terms`), the segmented warp sums over runs of equal winner
-// (`run_sum`; `run_sums` for many columns at once), and K4's body
-// (`accumulate_triangle_gradients`): one thread per pixel, 256 pixels of
-// a row per block, so a warp holds 32 horizontally neighbouring pixels,
-// which mostly share a winner. A warp finds its runs of equal winner id
-// with one shuffle and one ballot, sums each value over each run with five
-// `__shfl_down_sync` steps, and only the first lane of each run issues the
-// atomic add into the table in device memory, which has no per-pass cap.
-// K2 (rasterize_fused_bwd.cu) first sorts each warp's lanes by winner.
+// The body both kernels run (`warp_gradients`, templated on whether
+// attributes exist): warps of 8x4 pixels, two to a 64-thread CTA of 8x8
+// pixels, and no block barrier.
+//   1. Every lane reads its pixel's id and bc; a warp with no active pixel
+//      leaves at once (one ballot), before any cotangent load or shuffle.
+//   2. The warp sorts its lanes by winner: lanes with one winner group
+//      with `__match_any_sync`, a prefix sum over the groups' first lanes
+//      places each group, and one exchange through shared memory hands
+//      each lane its place's pixel. The active pixels come first, each
+//      winner's together, so the runs of a winner that the 8x4 block
+//      splits join.
+//   3. With attributes, in rounds of kAttrChunk attributes (float4 or
+//      float2 loads where A allows, each attribute cotangent loaded once),
+//      the warp folds them into g (the fused part), then sums their
+//      columns over each run of one winner four attributes at a time
+//      (`run_sums`: each step's shuffles of 12 columns issued together,
+//      over as many steps as the warp's longest run needs). Then the 9
+//      clip columns; the run's first lane adds each sum to the table in
+//      device memory: one global atomic per (warp, winner, column). No A
+//      is too large: a round holds kAttrChunk cotangents in registers.
+//      Without attributes (K4) the rounds and the fused part compile away
+//      and the table's stride is 9.
+// Why no larger unit: summing per 16x16 tile in shared memory measured
+// slower on the H100 (PERF.md). sm_90 has no native shared fp32 add (the
+// atomic compiles to a CAS loop), and a tile sort needs block barriers,
+// which leave the teapot's 200 busy tiles one or two long CTA chains per
+// SM. Likewise a CTA of eight such warps keeps an idle warp's slot until
+// its busy neighbours are done; a CTA of two ties it to one at most.
 // The scatter from triangles to vertices ([B, T, 9 + 3A] -> [B, V, 4] and
 // [B, V, A]) is T-sized and stays plain PyTorch, as the JAX package leaves
 // `_scatter_corner_grads` to XLA.
@@ -44,30 +65,35 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kBwdThreads = 256;
 constexpr float kDegenerateBarycentricCutoff = 0.9f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Sums v over lanes [lane, run_end) of the warp: afterwards the first lane
-// of each run holds that run's total. Every lane of the warp must call it.
-// After the step with offset o, lane l holds the sum over
-// [l, min(l + 2o, run_end)): lane l + o lies in the same run, so its
-// partial sum stops at the same run_end.
-__device__ __forceinline__ float run_sum(float v, int lane, int run_end) {
-#pragma unroll
-  for (int offset = 1; offset < 32; offset <<= 1) {
-    const float other = __shfl_down_sync(kFullMask, v, offset);
-    if (lane + offset < run_end) v += other;
-  }
-  return v;
-}
+// A warp's block of pixels: 8 wide, 4 high; a CTA's, two of them, 8x8.
+constexpr int kWarpW = 8;
+constexpr int kWarpH = 4;
+static_assert(kWarpW * kWarpH == 32, "one lane per pixel");
+constexpr int kBwdCtaW = kWarpW;
+constexpr int kBwdCtaH = 2 * kWarpH;
+constexpr int kBwdCtaThreads = kBwdCtaW * kBwdCtaH;
+// Attribute cotangents per pixel and round, held in registers: a multiple
+// of 4, for float4 loads.
+constexpr int kAttrChunk = 12;
+// Attributes whose columns one run_sums call sums.
+constexpr int kSumAttrs = 4;
+static_assert(kAttrChunk % kSumAttrs == 0, "whole groups of attributes");
 
-// run_sum of each of v[0, n) (n <= N, the same on every lane), the
-// columns' shuffles of a step issued together, over the steps that runs
-// of up to `span` lanes (a power of two, the same on every lane) need.
+// Sums each of v[0, n) (n <= N, the same on every lane) over lanes
+// [lane, run_end) of the warp: afterwards the first lane of each run holds
+// that run's totals. The columns' shuffles of a step are issued together,
+// over the steps that runs of up to `span` lanes (a power of two, the same
+// on every lane) need. Every lane of the warp must call it. After the step
+// with offset o, lane l holds the sum over [l, min(l + 2o, run_end)): lane
+// l + o lies in the same run, so its partial sum stops at the same
+// run_end.
 template <int N>
 __device__ __forceinline__ void run_sums(float (&v)[N], int n, int lane,
                                          int run_end, int span) {
@@ -124,57 +150,209 @@ __device__ __forceinline__ int run_end_of(int id, int lane, bool* head) {
   return later ? __ffs(later) - 1 : 32;
 }
 
-// K4's body. One pixel per thread: blockIdx.y is the batch image,
-// blockIdx.x * 256 + threadIdx.x the pixel in it (row-major).
-__device__ __forceinline__ void accumulate_triangle_gradients(
-    const int* __restrict__ ids,            // [B, H*W]
-    const float* __restrict__ bc,           // [B, H*W, 3]
-    const float* __restrict__ g_bc,         // [B, H*W, 3]
-    const float4* __restrict__ tri_rows,    // [B, T, 16]
-    const float* __restrict__ inv_abs_det,  // [B, T]
-    float* __restrict__ dtab,               // [B, T, 9]
-    int num_tris, int pixels) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * kBwdThreads + threadIdx.x;
-  const int lane = threadIdx.x % 32;
-  const size_t pixel = static_cast<size_t>(b) * pixels + p;
-
-  // The winner, or -1 when the pixel is outside the image or inactive.
-  int id = -1;
-  float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f;
-  if (p < pixels) {
-    const int t = ids[pixel];
-    const float c0 = bc[pixel * 3 + 0];
-    const float c1 = bc[pixel * 3 + 1];
-    const float c2 = bc[pixel * 3 + 2];
-    if (pixel_active(t, c0, c1, c2, num_tris)) {
-      id = t;
-      b0 = c0;
-      b1 = c1;
-      b2 = c2;
+// Loads values [0, n) of `src` into out[0, kN) (the rest 0), `vec` floats
+// a load: 4 and 2 need n and the address to be multiples of vec.
+template <int kN>
+__device__ __forceinline__ void load_chunk(const float* src, int n, int vec,
+                                           float (&out)[kN]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) out[j] = 0.0f;
+  if (vec == 4) {
+#pragma unroll
+    for (int j = 0; j < kN; j += 4) {
+      if (j < n) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(src + j));
+        out[j] = v.x;
+        out[j + 1] = v.y;
+        out[j + 2] = v.z;
+        out[j + 3] = v.w;
+      }
+    }
+  } else if (vec == 2) {
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      if (j < n) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(src + j));
+        out[j] = v.x;
+        out[j + 1] = v.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (j < n) out[j] = __ldg(src + j);
     }
   }
-  const size_t tri = static_cast<size_t>(b) * num_tris + (id >= 0 ? id : 0);
+}
 
-  float tc[3] = {0.0f, 0.0f, 0.0f};
-  if (id >= 0) {
-    clip_terms(g_bc[pixel * 3 + 0], g_bc[pixel * 3 + 1], g_bc[pixel * 3 + 2],
-               b0, b1, b2, tri_rows + tri * 4, inv_abs_det[tri], tc);
+// The body of K2 (kAttrs) and K4 (!kAttrs) for one warp of a
+// kBwdCtaThreads CTA: blockIdx.x, blockIdx.y the CTA's 8x8 pixels,
+// blockIdx.z the batch image. Without attributes, g_attr and corner are
+// not read (they may be null), num_attrs is taken as 0 and dtab is
+// [B, T, 9].
+template <bool kAttrs>
+__device__ __forceinline__ void warp_gradients(
+    const int* __restrict__ ids,            // [B, H, W]
+    const float* __restrict__ bc,           // [B, H, W, 3]
+    const float* __restrict__ g_bc,         // [B, H, W, 3]
+    const float* __restrict__ g_attr,       // [B, H, W, A]
+    const float4* __restrict__ tri_rows,    // [B, T, 16]
+    const float* __restrict__ inv_abs_det,  // [B, T]
+    const float* __restrict__ corner,       // [B, T, 3, A]
+    float* __restrict__ dtab,               // [B, T, 9 + 3A]
+    int num_tris, int num_attrs, int width, int height) {
+  __shared__ int lane_at[kBwdCtaThreads / 32][32];  // sorted place -> lane
+  if (!kAttrs) num_attrs = 0;
+
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+
+  // 1. This lane's pixel of the warp's 8x4 block: its winner, or -1 when
+  // the pixel is outside the image or inactive.
+  const int x = blockIdx.x * kBwdCtaW + lane % kWarpW;
+  const int y = blockIdx.y * kBwdCtaH + warp * kWarpH + lane / kWarpW;
+  const size_t own_pixel =
+      (static_cast<size_t>(b) * height + y) * static_cast<size_t>(width) + x;
+  int id = -1;
+  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  if (x < width && y < height) {
+    const int t = ids[own_pixel];
+    c0 = bc[own_pixel * 3 + 0];
+    c1 = bc[own_pixel * 3 + 1];
+    c2 = bc[own_pixel * 3 + 2];
+    if (pixel_active(t, c0, c1, c2, num_tris)) id = t;
   }
+  const unsigned active = __ballot_sync(kFullMask, id >= 0);
+  if (active == 0) return;  // warp-uniform: no active pixel
 
-  // Runs of lanes with equal winner id; only a run's first lane writes.
-  bool head;
-  const int run_end = run_end_of(id, lane, &head);
-  const bool writer = head && id >= 0;
-  float* out = dtab + tri * 9;
+  // 2. Sort the lanes by winner: groups in the order of their first lanes,
+  // the inactive lanes last.
+  const unsigned below = (1u << lane) - 1u;
+  unsigned peers = 0;
+  int leader = lane;
+  if (id >= 0) {
+    peers = __match_any_sync(active, id);
+    leader = __ffs(peers) - 1;
+  }
+  int start = lane == leader && id >= 0 ? __popc(peers) : 0;
+#pragma unroll
+  for (int offset = 1; offset < 32; offset <<= 1) {  // inclusive prefix sum
+    const int other = __shfl_up_sync(kFullMask, start, offset);
+    if (lane >= offset) start += other;
+  }
+  const int n_active = __popc(active);
+  const int group_start = __shfl_sync(kFullMask, start, leader) -
+                          (id >= 0 ? __popc(peers) : 0);
+  const int place = id >= 0 ? group_start + __popc(peers & below)
+                            : n_active + __popc(~active & below);
+  lane_at[warp][place] = lane;
+  __syncwarp();
+  const int from = lane_at[warp][lane];
+  const int my_id = __shfl_sync(kFullMask, id, from);
+  const float b0 = __shfl_sync(kFullMask, c0, from);
+  const float b1 = __shfl_sync(kFullMask, c1, from);
+  const float b2 = __shfl_sync(kFullMask, c2, from);
+  const size_t pixel = __shfl_sync(
+      kFullMask, static_cast<unsigned long long>(own_pixel), from);
+
+  // Runs of lanes with one winner (the tail's lanes hold -1): only a
+  // run's first lane adds its sums, over as many steps as the warp's
+  // longest run needs.
+  bool head = false;
+  const int run_end = run_end_of(my_id, lane, &head);
+  const bool writer = head && my_id >= 0;
+  const int longest = __reduce_max_sync(kFullMask, head ? run_end - lane : 0);
+  int span = 1;
+  while (span < longest) span <<= 1;
+
+  // 3. The winner's row, 1/|det| and the bc cotangent, loaded before the
+  // attribute rounds so that their latency overlaps.
+  const size_t tri =
+      static_cast<size_t>(b) * num_tris + (my_id >= 0 ? my_id : 0);
+  float4 row[3] = {};
+  float inv = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  if (my_id >= 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) row[k] = __ldg(tri_rows + tri * 4 + k);
+    inv = __ldg(inv_abs_det + tri);
+    g0 = __ldg(g_bc + pixel * 3 + 0);
+    g1 = __ldg(g_bc + pixel * 3 + 1);
+    g2 = __ldg(g_bc + pixel * 3 + 2);
+  }
+  float* out = dtab + tri * (9 + 3 * num_attrs);
   const float bk[3] = {b0, b1, b2};
+  if constexpr (kAttrs) {
+    float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
+    const float* ga = g_attr + pixel * num_attrs;
+    const float* ca = corner + tri * 3 * num_attrs;
+    // Float4 or float2 loads of the cotangent rows where A and the base
+    // address allow (the rounds start at multiples of kAttrChunk).
+    const uintptr_t address = reinterpret_cast<uintptr_t>(g_attr);
+    const int vec = num_attrs % 4 == 0 && address % 16 == 0 ? 4
+                    : num_attrs % 2 == 0 && address % 8 == 0 ? 2 : 1;
+    for (int a0 = 0; a0 < num_attrs; a0 += kAttrChunk) {
+      const int na = min(kAttrChunk, num_attrs - a0);
+      float gv[kAttrChunk];
+      if (my_id >= 0) {
+        load_chunk(ga + a0, na, vec, gv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kAttrChunk; ++j) gv[j] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kAttrChunk; ++j) {
+        if (j < na && my_id >= 0) {  // the fused part, in attribute order
+          d0 += gv[j] * ca[a0 + j];
+          d1 += gv[j] * ca[num_attrs + a0 + j];
+          d2 += gv[j] * ca[2 * num_attrs + a0 + j];
+        }
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < kAttrChunk; j0 += kSumAttrs) {
+        const int n = min(kSumAttrs, na - j0);  // uniform over the grid
+        if (n <= 0) break;
+        // Column 3 j + k: corner k's attribute a0 + j0 + j.
+        float v[3 * kSumAttrs];
+#pragma unroll
+        for (int j = 0; j < kSumAttrs; ++j) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) v[3 * j + k] = bk[k] * gv[j0 + j];
+        }
+        run_sums(v, 3 * n, lane, run_end, span);
+        if (writer) {
+#pragma unroll
+          for (int j = 0; j < kSumAttrs; ++j) {
+            if (j < n) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                atomicAdd(out + 9 + k * num_attrs + a0 + j0 + j,
+                          v[3 * j + k]);
+              }
+            }
+          }
+        }
+      }
+    }
+    g0 += d0;  // the fused part joins the bc cotangent
+    g1 += d1;
+    g2 += d2;
+  }
+  // Column c * 3 + k: corner k's clip coordinate c.
+  float tc[3] = {0.0f, 0.0f, 0.0f};
+  if (my_id >= 0) {
+    clip_terms(g0, g1, g2, b0, b1, b2, row, inv, tc);
+  }
+  float v[9];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float v = run_sum(bk[k] * tc[c], lane, run_end);
-      if (writer) atomicAdd(out + c * 3 + k, v);
-    }
+    for (int k = 0; k < 3; ++k) v[c * 3 + k] = bk[k] * tc[c];
+  }
+  run_sums(v, 9, lane, run_end, span);
+  if (writer) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) atomicAdd(out + i, v[i]);
   }
 }
 

@@ -12,16 +12,24 @@ no triangle is valid).
   * `prod` (the script's `prod`): the production core unchanged,
     `rasterize_pixel` of csrc/rasterize_common.cuh (K1's and K3's loop, with
     its per-block cull), on the packed rows, with positional ids;
-  * `tc` (`mxu`): per visit the 3xTF32 `mma.sync` contraction
+  * `tc` (`mxu`): the 3xTF32 `mma.sync` contraction
     [5C, 3 -> 8] @ [8, 2048], then the same masking and winner on the
     products (mxu_full_microbench.py:131-152). Like the JAX kernel it
     omits the production live-column test: harmless here because the
     synthetic table sets column 15 to 1 everywhere, but it measures the
-    tc side one compare per pair lighter than a faithful port.
+    tc side one compare per pair lighter than a faithful port. The kernel
+    stages each CTA's rows in shared memory with `cp.async`, splits them
+    into TF32 hi and lo once per CTA, culls the triangles per warp region
+    of 2x16 pixels (`tc_keeps` is the plain model of that cull; it keeps
+    every pair the plain version counts inside) and runs the products only
+    on the survivors, compacted into groups of 8.
 
 Both kernels (csrc/mxu_full.cu) split the visits over the same blocks and
 merge the partial winners in one shared second pass; they differ in how a
-pair's five values are computed. Each sits beside a plain PyTorch version:
+pair's five values are computed. `prod` is the per-block core that K1 and
+K3 ran before their cluster body (csrc/rasterize_cluster_fwd.cuh), so
+`speedup` compares tc with that older core. Each sits beside a plain
+PyTorch version:
 `zbuffer_prod_torch` computes what `rasterize_pixel` computes (bit for bit);
 `zbuffer_tc_torch` rounds the operands to TF32 hi and lo parts as the
 kernel does and sums the three exact products in fp32, in its own order, so
@@ -35,7 +43,11 @@ prints the script's JSON line: `covered_px`, `id_mismatch_px` and
 how much the contraction's rounding moves knife-edge winners), each
 variant's time per call (`*_us`: the device time of its kernels by
 torch.profiler on a card, the host clock on the CPU; `*_call_us`:
-back-to-back calls by CUDA events) and `speedup` = prod / tc.
+back-to-back calls by CUDA events) and `speedup` = prod / tc; and, beyond
+the script's keys, `tc_kept_fraction` and `tc_group_fraction`, the share
+of all pairs that tc's cull keeps and that its groups of 8 run through
+the products, and `tc_busiest_groups`, the most groups one warp runs in
+one stage (`tc_cull_counts`).
 """
 
 from __future__ import annotations
@@ -69,6 +81,15 @@ EDGE_OPS, INSIDE_OPS, DEPTH_OPS, TAIL_OPS = 12, 6, 10, 6
 Z_TOL = 1e-5
 
 
+# The tc kernel's cull (csrc/mxu_full.cu): a warp's region of the 16x16
+# pixel block (2 rows of 16 pixels), the relative margin below which an
+# edge must lie at all four corners for a triangle to be dropped, and the
+# triangles a CTA stages at once (its survivors are grouped per stage).
+REGION_H, REGION_W = 2, 16
+CULL_MARGIN = 1e-5
+STAGE_TRIS = 128
+
+
 def make_inputs(visits, chunk, device):
     """The script's inputs from np.random.default_rng(0)
     (mxu_full_microbench.py:64-83): (data [visits*C, 16] packed rows,
@@ -80,6 +101,65 @@ def make_inputs(visits, chunk, device):
         np.float32)
     data[:, 0:9] *= 2.0
     data[:, 15] = 1.0
+    return _with_contraction_rows(data, visits, chunk, device)
+
+
+def make_knife_edge_inputs(device, seed=0):
+    """(data, coeff, visits, chunk) as make_inputs' pair, for a table whose
+    edges pass through the corner pixel centres of the tc kernel's warp
+    regions: for each of the tile's 64 regions, each corner and each of
+    the four quadrants, a triangle with a vertex at that corner's centre
+    and two edges along the quadrant's sides, each scaled by a seeded
+    factor in [0.3, 3) (so that c = -(a x + b y) rounds), and a far third
+    edge. Its inside pixels in the region are the corner alone, one of the
+    region's border rows or columns, or the whole region: where a cull
+    without a margin drops pairs that the plain version keeps. Also
+    triangles with a vertex one pixel outside a region, which cover part
+    of it or miss it by one pixel. z = 0.5 everywhere; C = 8."""
+    rng = np.random.default_rng(seed)
+    scale = np.float32(common.PIXEL_SCALE)
+    rows = []
+
+    def centre(index):
+        return (np.float32(index) + np.float32(0.5)) * scale - np.float32(1)
+
+    for ry in range(0, common.TILE_H, REGION_H):
+        for rx in range(0, common.TILE_W, REGION_W):
+            corners = [(rx + dx, ry + dy) for dx in (0, REGION_W - 1)
+                       for dy in (0, REGION_H - 1)]
+            corners += [(rx - 1, ry), (rx + REGION_W, ry + REGION_H)]
+            for col, row in corners:
+                xc, yc = centre(col), centre(row)
+                for sx, sy in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+                    ka, kb = rng.uniform(0.3, 3.0, 2)
+                    ra, rb = rng.uniform(-0.2, 0.2, 2)
+                    # Through (xc, yc), c in f64 rounded once to f32:
+                    # e0 = sx ka ((x - xc) + ra (y - yc)) >= 0 and
+                    # e1 = sy kb ((y - yc) + rb (x - xc)) >= 0 tilt by
+                    # less than a pixel over the region, so they hold
+                    # the quadrant's pixel centres; e2 = 0.5 - sx (x - xc)
+                    # - sy (y - yc) > 0 near the vertex.
+                    e0 = [sx * ka, sx * ka * ra, 0.0]
+                    e1 = [sy * kb * rb, sy * kb, 0.0]
+                    e2 = [-sx, -sy, 0.0]
+                    for e, base in ((e0, 0.0), (e1, 0.0), (e2, 0.5)):
+                        e[:2] = np.float32(e[:2])
+                        e[2] = base - (float(e[0]) * float(xc)
+                                       + float(e[1]) * float(yc))
+                    rows.append(np.concatenate([e0, e1, e2, [0.5] * 3,
+                                                [1.0] * 3, [1.0]]))
+    chunk = 8
+    data = np.asarray(rows, np.float32)
+    data = np.concatenate([data, np.zeros((-len(data) % chunk, 16),
+                                          np.float32)])
+    visits = len(data) // chunk
+    return _with_contraction_rows(data, visits, chunk, device) + (visits,
+                                                                  chunk)
+
+
+def _with_contraction_rows(data, visits, chunk, device):
+    """(data, coeff) on `device`: the packed rows [visits*C, 16] and their
+    edge-major contraction rows [visits*5C, 8] (make_inputs)."""
     m = data.reshape(visits, chunk, 16)
     a = m[:, :, 0:9].reshape(visits, chunk, 3, 3)
     num_c = np.einsum("vcek,vce->vck", a, m[:, :, 9:12])
@@ -180,6 +260,70 @@ def check_tc(kernel, pairs):
     return int(moved.sum()), z_gap, w_gap
 
 
+def tc_keeps(coeff, visits, chunk):
+    """[TILE_H / 2, TILE_W / 16, visits * C] bool: the plain model of the
+    tc kernel's cull, whether each triangle is kept for each warp region
+    (2 rows x 16 columns; pixel (r, c) lies in region [r // 2, c // 16]).
+    A triangle is dropped when one of its edges a x + b y + c, evaluated
+    in f32 in the kernel's order at the region's four corner pixel
+    centres, is below -CULL_MARGIN (|a| max|x| + |b| max|y| + |c|) at all
+    four."""
+    device = coeff.device
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = coeff.view(visits, 5, chunk, 8)[:, :3, :, :3]  # [V, 3, C, 3]
+    edges = rows.permute(1, 0, 2, 3).reshape(3, visits * chunk, 3)
+    a, b, c = (edges[..., k][:, None, None, :] for k in range(3))
+    scale = torch.tensor(common.PIXEL_SCALE, **f32)
+
+    def ndc(index):
+        return ((index.to(torch.float32) + 0.5) * scale - 1.0)
+
+    x0 = torch.arange(0, common.TILE_W, REGION_W, device=device)
+    y0 = torch.arange(0, common.TILE_H, REGION_H, device=device)
+    x_lo, x_hi = (ndc(x)[None, :, None] for x in (x0, x0 + REGION_W - 1))
+    y_lo, y_hi = (ndc(y)[:, None, None] for y in (y0, y0 + REGION_H - 1))
+    one = torch.tensor(1.0, **f32)
+    x_max = torch.fmax(one, torch.fmax(x_lo.abs(), x_hi.abs()))
+    y_max = torch.fmax(one, torch.fmax(y_lo.abs(), y_hi.abs()))
+    top = torch.fmax(torch.fmax(a * x_lo + b * y_lo + c, a * x_hi + b * y_lo
+                                + c),
+                     torch.fmax(a * x_lo + b * y_hi + c, a * x_hi + b * y_hi
+                                + c))
+    margin = torch.tensor(CULL_MARGIN, **f32) * (
+        a.abs() * x_max + b.abs() * y_max + c.abs())
+    return ~(top < -margin).any(0)
+
+
+def tc_cull_counts(coeff, visits, chunk):
+    """Where the tc kernel's work falls: {pairs (all visits * C * 2048),
+    kept_pairs (the pairs of the triangles `tc_keeps` keeps for their
+    region), group_pairs (those that its groups of 8 run through the
+    products: per region and CTA stage of STAGE_TRIS triangles, the kept
+    triangles rounded up to a multiple of 8), the two as fractions of
+    pairs, and busiest_groups (the most groups of 8 one warp runs in one
+    stage)}."""
+    keeps = tc_keeps(coeff, visits, chunk)
+    per_split = visits // common.visit_splits(visits) * chunk
+    n_tri = visits * chunk
+    # Each triangle's stage, named by its first triangle.
+    tri = torch.arange(n_tri, device=coeff.device)
+    stage = tri - tri % per_split + tri % per_split // STAGE_TRIS * STAGE_TRIS
+    region_px = REGION_H * REGION_W
+    per_stage = torch.zeros(keeps.shape[:2] + (n_tri,), dtype=torch.long,
+                            device=coeff.device)
+    per_stage.index_add_(2, stage, keeps.long())
+    per_region_groups = (per_stage + 7) // 8
+    groups = int(per_region_groups.sum())
+    pairs = n_tri * common.N_PIX
+    kept_pairs = int(keeps.sum()) * region_px
+    group_pairs = groups * 8 * region_px
+    return {"pairs": pairs, "kept_pairs": kept_pairs,
+            "group_pairs": group_pairs,
+            "kept_fraction": kept_pairs / pairs if pairs else 0.0,
+            "group_fraction": group_pairs / pairs if pairs else 0.0,
+            "busiest_groups": int(per_region_groups.max()) if n_tri else 0}
+
+
 def pair_counts(data):
     """(pairs a cull must keep, pairs inside a live triangle) of the [T, 16]
     rows: what a bound counts. A cull must keep, per triangle, the pixels of
@@ -273,9 +417,13 @@ def run(visits=512, chunk=8, iters=30, device="cuda"):
     }
     for name, call in calls.items():
         results.update(common.times_us(name, call, dev, iters))
+    cull = tc_cull_counts(coeff, visits, chunk)
     results.update(chunk=chunk, visits=visits,
                    device=common.device_name(dev),
-                   speedup=results["prod_us"] / results["tc_us"])
+                   speedup=results["prod_us"] / results["tc_us"],
+                   tc_kept_fraction=cull["kept_fraction"],
+                   tc_group_fraction=cull["group_fraction"],
+                   tc_busiest_groups=cull["busiest_groups"])
     return results
 
 

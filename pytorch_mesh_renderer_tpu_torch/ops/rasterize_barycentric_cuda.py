@@ -87,7 +87,9 @@ def launch_bary_bwd(ids, bc, df_dbc, table, inv_abs_det):
 
     Every operand must be a contiguous CUDA tensor on one device: ids
     [B, H, W] i32, bc and df_dbc [B, H, W, 3] f32, table [B, T, 16] f32,
-    inv_abs_det [B, T] f32.
+    inv_abs_det [B, T] f32. H is a row strip's height where the forward
+    rendered a strip; the kernel runs K2's grid of 8x8-pixel CTAs over
+    W x H.
     """
     global BWD_LAUNCHES
     f32 = torch.float32
@@ -103,7 +105,7 @@ def launch_bary_bwd(ids, bc, df_dbc, table, inv_abs_det):
         error = lib.rasterize_bary_bwd(
             ids.data_ptr(), bc.data_ptr(), df_dbc.data_ptr(),
             table.data_ptr(), inv_abs_det.data_ptr(), dtab.data_ptr(),
-            batch, n_tri, ids[0].numel(), stream)
+            batch, n_tri, ids.shape[2], ids.shape[1], stream)
     kernels.check_cuda_error(lib, error, "rasterize_bary_bwd launch")
     BWD_LAUNCHES += 1
     return dtab

@@ -20,12 +20,14 @@ then the larger id.
 
 `bwd_counts` counts the backward's work from the forward's ids and bc:
 active pixels, their distinct winners (the table rows the backward reads
-and writes), the warps that hold one (K4's row-major 32-pixel warps and
-K2's 8x4 pixel warps), the runs of equal
-winner in a row-major warp and the distinct winners of a K2 warp (each
-takes 9 + 3A global atomics), and the distinct (16x16 tile, winner)
-pairs. `warp_gradients_torch` is the plain model of K2's reduction: each
-pixel's terms summed per (warp, winner), then per winner.
+and writes), the warps that hold one (row-major warps of 32 pixels, the
+layout of a one-thread-per-pixel row kernel, and the 8x4 pixel warps of
+K2 and K4), the runs of equal winner in a row-major warp (one global
+atomic per column each in such a kernel) and the distinct winners of an
+8x4 warp (each takes 9 + 3A global atomics in K2, 9 in K4), and the
+distinct (16x16 tile, winner) pairs. `warp_gradients_torch` is the plain
+model of the reduction that K2 and K4 share: each pixel's terms summed
+per (warp, winner), then per winner.
 
 On the card, `main` prints each kernel's registers, spills and CTAs per
 SM (`soft_work.kernel_report`) and its launch and device times: K1 at its
@@ -34,9 +36,9 @@ compiled split and at each split tried on the teapot at 256x256 batch 4
 512x512 batch 4, and on its floor (the teapot's table moved off screen,
 x += 100 w, so that every row fails the cull: the stream and the cull
 alone); K2 with A = 9 on both scenes and on its floor (every pixel
-inactive: ids 0, bc 0); K3 and K4 on the teapot at 256x256 for one image
-and for four, K3 at its launcher's rule and at each group and split
-tried; the device time of the hard training step and of the 4-image
+inactive: ids 0, bc 0); K3 and K4 on both scenes for one image and for
+four, K3 at its launcher's rule and at each group and split tried, K4
+also on its floor (every pixel inactive); the device time of the hard training step and of the 4-image
 `rasterize_barycentric` step; then the counts. On the CPU it prints the
 counts only. To compare with an older commit, unpack it into
 `.chipcheck/` (git-ignored), copy this file into it and run both in one
@@ -64,7 +66,8 @@ KERNELS = {"k1": KERNEL, "k2": "rasterize_fused_bwd_kernel",
            "k3": "rasterize_bary_fwd_kernel", "k4": "rasterize_bary_bwd_kernel"}
 TILE = 16  # the forward's pixel block, bwd_counts' tiles
 WARP = 32
-# K2's warp: an 8 wide, 4 high pixel block (csrc/rasterize_fused_bwd.cu).
+# The warp of K2 and K4: an 8 wide, 4 high pixel block
+# (csrc/rasterize_bwd_common.cuh).
 K2_WARP = (8, 4)
 # step_profiles' label of the hard training step.
 TRAIN_STEP = "hard training step"
@@ -243,12 +246,13 @@ def bwd_counts(ids, bc):
     bc [B, H, W, 3]: {"per_image": [{...}, ...], "total": {...}} with, per
     image, `pixels`, `active_pixels`, `winners` (the distinct winners of
     its active pixels: the table rows the backward writes and whose
-    packed rows it reads); in row-major warps of 32 pixels
-    (K4's) `row_warps`, `row_warps_active` and
-    `row_runs`, the runs of equal winner among active lanes (one global
-    atomic per column each); in K2's warps, 8x4 pixel blocks,
-    `warps_active` and `warp_winners`, the distinct
-    (warp, winner) pairs (one global atomic per column each); and per
+    packed rows it reads); in row-major warps of 32 pixels (the layout
+    of a one-thread-per-pixel row kernel) `row_warps`, `row_warps_active`
+    and `row_runs`, the runs of equal winner among active lanes (one
+    global atomic per column each in such a kernel); in the warps of K2
+    and K4, 8x4 pixel blocks, `warps_active` and `warp_winners`, the
+    distinct (warp, winner) pairs (one global atomic per column each); and
+    per
     16x16 tile `tiles`, `tiles_active`, `tile_winners`, the distinct
     (tile, winner) pairs, and `busiest_tile_winners`."""
     batch = ids.shape[0]
@@ -284,10 +288,11 @@ def bwd_counts(ids, bc):
 
 def warp_gradients_torch(ids, bc, df_dbc, df_dattr, table, inv_abs_det,
                          corner):
-    """The plain model of K2's reduction: each active pixel's terms
-    (`rasterize_cuda.pixel_gradient_terms`) summed per (warp, winner), a
-    warp an 8x4 pixel block, then each sum added to its winner's row.
-    Arguments and result as `rasterize_cuda.triangle_gradients_torch`."""
+    """The plain model of the reduction of K2 (and, at A = 0, of K4): each
+    active pixel's terms (`rasterize_cuda.pixel_gradient_terms`) summed
+    per (warp, winner), a warp an 8x4 pixel block, then each sum added to
+    its winner's row. Arguments and result as
+    `rasterize_cuda.triangle_gradients_torch`."""
     from ..ops import rasterize_cuda as rc
 
     batch, n_tri = table.shape[:2]
@@ -453,7 +458,8 @@ def k34_times(device):
     scene of SCENES for one image and for all its images: K3 at its
     launcher's rule and, where the launcher takes them, at each group of
     GROUPS and split of SPLITS; K4 on K3's ids and bc with df/dbc from a
-    seeded generator."""
+    seeded generator, and on its floor (ids 0, bc 0: every pixel
+    inactive)."""
     configs = [(0, 0)]
     if takes_split("launch_bary_fwd", "rasterize_barycentric_cuda"):
         configs += [(g, s) for g in GROUPS for s in SPLITS]
@@ -484,13 +490,17 @@ def _k34_lines(name, clip, tris, size, configs):
     rng = torch.Generator(device=device).manual_seed(5)
     df_dbc = torch.randn(tuple(bc.shape), dtype=torch.float32,
                          device=device, generator=rng)
+    bwd_times = {label: time_launch(
+        lambda i=i, b=b: rb.launch_bary_bwd(i, b, df_dbc, table,
+                                            inv_abs_det),
+        KERNELS["k4"], device) for label, i, b in (
+            ("active", ids, bc),
+            ("floor (every pixel inactive)", torch.zeros_like(ids),
+             torch.zeros_like(bc)))}
     return [{"kernel": "rasterize_bary_fwd", "scene": name, "images": batch,
              "launch_and_device_ms": times},
             {"kernel": "rasterize_bary_bwd", "scene": name, "images": batch,
-             "launch_and_device_ms": time_launch(
-                 lambda: rb.launch_bary_bwd(ids, bc, df_dbc, table,
-                                            inv_abs_det),
-                 KERNELS["k4"], device)}]
+             "launch_and_device_ms": bwd_times}]
 
 
 def step_profiles(device, name="teapot 256"):

@@ -133,13 +133,14 @@ def load_library() -> ctypes.CDLL:
     lib.rasterize_fused_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     lib.rasterize_bary_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [
         f32, f32, i32, i32, ptr]
-    lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.rasterize_bary_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
     lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
     lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     occupancy = (lib.rasterize_fused_fwd_blocks_per_sm,
                  lib.rasterize_fused_bwd_blocks_per_sm,
+                 lib.rasterize_bary_bwd_blocks_per_sm,
                  lib.soft_bwd_blocks_per_sm, lib.soft_sil_bwd_blocks_per_sm,
                  lib.soft_fwd_blocks_per_sm, lib.soft_sil_fwd_blocks_per_sm)
     for entry in occupancy:

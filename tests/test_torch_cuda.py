@@ -13,7 +13,9 @@ ids must be equal and bc, z and attributes agree to 1e-6. The backward
 kernels (K2, K4) sum per-pixel terms into per-triangle rows with atomic
 adds in an order that changes from run to run: their gradients agree with
 the plain versions' to 1e-5 of the plain tensor's max |value|, per tensor,
-the JAX suite's CPU gate between its two backward backends; K2 at A = 0,
+the JAX suite's CPU gate between its two backward backends; K4 (K2's
+body without attributes) also at ragged sizes, on row strips, the empty
+mesh and every pixel inactive, under its own kernel name; K2 at A = 0,
 1, 2, 9, 12, 13 and 40 (one to four rounds of its registers, float, float2
 and float4 loads), on the teapot and sphere72, on row strips, the empty
 mesh and every pixel inactive (an exactly zero table). K1 runs as a
@@ -42,7 +44,8 @@ with chip_smoke.py.
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
 variants are held at their modules' tolerances (`mxu_edge.TC_RTOL`,
-`mxu_full.check_tc`); both patch merges give K3's ids.
+`mxu_full.check_tc`, also on a table whose edges pass through the tc
+cull's region corners); both patch merges give K3's ids.
 """
 
 import numpy as np
@@ -101,8 +104,9 @@ def _snapped_scene(dev, batch=2, vertex_count=300, tri_count=2000,
             torch.tensor(tris, dtype=torch.int32, device=dev), width, height)
 
 
-def _scene(name, dev):
-    """(clip [B, V, 4], attributes [B, V, A], triangles, width, height)."""
+def _scene(name, dev, size=None):
+    """(clip [B, V, 4], attributes [B, V, A], triangles, width, height);
+    `size` (width, height) replaces a random scene's 48x40."""
     f32 = dict(dtype=torch.float32, device=dev)
     if name == "snapped":
         return _snapped_scene(dev)
@@ -112,7 +116,7 @@ def _scene(name, dev):
         attrs, eye, (width, height) = verts * 0.5 + 0.5, [2.0, 3.0, 6.0], (
             64, 48)
     else:  # random<A>: tests/test_rasterize_pallas.py's random scene
-        batch, width, height = 2, 48, 40
+        batch, (width, height) = 2, size or (48, 40)
         rng = np.random.RandomState(0)
         verts = torch.tensor(rng.randn(batch, 24, 3) * 0.5, **f32)
         tris = torch.tensor(rng.randint(0, 24, (30, 3)), dtype=torch.int32,
@@ -444,6 +448,77 @@ def test_backward_row_strips_and_empty_mesh(dev):
     assert torch.equal(c.grad, torch.zeros_like(c))
 
 
+# K4 on K2's warp grid (8x8-pixel CTAs): ragged sizes mask x >= W and
+# y >= H; a row strip launches on the strip's height.
+K4_CASES = ["random 37x23", "random 129x17", "teapot 256 b4",
+            "strip rows 20-39 of 40", "strip rows 13-29 of 40", "empty",
+            "every pixel inactive"]
+
+
+def _k4_operands(case, dev):
+    """(ids, bc, df/dbc, table, inv_abs_det) of a K4 case: K3's forward on
+    the case's scene (or strip), a seeded bc cotangent."""
+    row_offset, full_height = 0, None
+    if case == "teapot 256 b4":
+        clip, _, tris, width = hard_work.scene_tables("teapot 256", dev)
+        height = width
+    else:
+        size = tuple(int(n) for n in case.split()[1].split("x")) if (
+            case.startswith("random")) else None
+        clip, _, tris, width, height = _scene("random9", dev, size)
+    if case.startswith("strip"):
+        first, last = (int(n) for n in case.split()[2].split("-"))
+        row_offset, full_height, height = first, height, last - first + 1
+    if case == "empty":
+        tris = tris[:0]
+    table, inv_abs_det = rc.pack_rows(clip, tris, True)
+    ids, bc, _ = rb.launch_bary_fwd(table, width, height, row_offset,
+                                    full_height or height)
+    if case == "every pixel inactive":
+        ids, bc = torch.zeros_like(ids), torch.zeros_like(bc)
+    g_bc, _ = _cotangents(ids, 0)
+    return ids, bc, g_bc, table, inv_abs_det
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_matches_its_plain_version(dev, case):
+    operands = _k4_operands(case, dev)
+    before = rb.BWD_LAUNCHES
+    kernel = rb.launch_bary_bwd(*operands)
+    assert rb.BWD_LAUNCHES == before + 1
+    plain = rb.triangle_gradients_bary_torch(*operands)
+    torch.cuda.synchronize()
+    assert kernel.shape == plain.shape == operands[3].shape[:2] + (9,)
+    if case in ("empty", "every pixel inactive"):
+        assert torch.equal(kernel, torch.zeros_like(kernel))
+        return
+    assert float(plain.abs().max()) > 0.0
+    _assert_grads_close([kernel], [plain])
+
+
+def test_k4_keeps_its_own_kernel_name(dev):
+    """K4 runs K2's body under its own symbol, which the profiler and the
+    build report name (utils/hard_work.py finds kernels by name)."""
+    from pytorch_mesh_renderer_tpu_torch.utils import kernels, soft_work
+
+    operands = _k4_operands("random 37x23", dev)
+    rb.launch_bary_bwd(*operands)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rb.launch_bary_bwd(*operands)
+        torch.cuda.synchronize()
+    names = [event.key for event in prof.key_averages()]
+    assert any(hard_work.KERNELS["k4"] in name for name in names), names
+    assert not any(hard_work.KERNELS["k2"] in name for name in names)
+    log = kernels.build().log
+    assert hard_work.report_names(log, "k4") == [hard_work.KERNELS["k4"]]
+    report = soft_work.kernel_report(log, hard_work.KERNELS["k4"])
+    assert report["registers"] > 0 and report["blocks_per_sm"] > 0
+    assert report["occupancy_source"] == "cudaOccupancy"
+
+
 def test_backward_launchers_reject_what_the_kernels_do_not_take(dev):
     clip, attrs, tris, width, height = _scene("cube", dev)
     table, inv_abs_det = rc.pack_rows(clip, tris, True)
@@ -716,9 +791,16 @@ def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
     assert me.LAUNCHES == {name: n + 1 for name, n in before.items()}
 
 
-@pytest.mark.parametrize("visits,chunk", [(64, 8), (512, 8), (12, 16)])
+# (37, 8): one split of 296 triangles, three of the tc kernel's stages of
+# 128, the last partial.
+@pytest.mark.parametrize("visits,chunk", [
+    (64, 8), (512, 8), (12, 16), (37, 8),
+    pytest.param(None, 8, id="knife-edge")])
 def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
-    data, coeff = mf.make_inputs(visits, chunk, dev)
+    if visits is None:  # edges through the tc cull's region corners
+        data, coeff, visits, chunk = mf.make_knife_edge_inputs(dev)
+    else:
+        data, coeff = mf.make_inputs(visits, chunk, dev)
     before = dict(mf.LAUNCHES)
     prod = mf.launch_prod(data, visits, chunk)
     for k, p in zip(prod, mf.zbuffer_prod_torch(data)):
@@ -757,7 +839,8 @@ def test_patch_scatter_merges_equal_the_production_forward(dev, config):
     assert result["bc_max_err"] <= 1e-6 and result["z_max_err"] <= 1e-6
 
 
-def test_microbench_wrappers_reject_what_the_kernels_do_not_take(dev):
+def test_microbench_wrappers_reject_what_the_kernels_do_not_take(
+        dev, monkeypatch):
     data, coeff, pix = me.make_inputs(4, 8, dev)
     with pytest.raises(ValueError, match="CUDA"):
         me.launch_fma(data.cpu(), 4, 8)
@@ -769,6 +852,12 @@ def test_microbench_wrappers_reject_what_the_kernels_do_not_take(dev):
         me.launch_tc(coeff, pix, 4, 8, "fma")
     with pytest.raises(ValueError, match="CUDA"):
         ps.launch_patch_eval(torch.zeros(1, 8, 20), 64, (16, 8))
+    # S2's tc computes at its own pixel scale, whose centres are TF32-exact,
+    # and refuses any other.
+    full_coeff = mf.make_inputs(8, 8, dev)[1]
+    monkeypatch.setattr(common, "PIXEL_SCALE", 2.0 / 500)
+    with pytest.raises(RuntimeError, match="mxu_full_tc launch"):
+        mf.launch_tc(full_coeff, 8, 8)
 
 
 def test_device_profile_falls_back_to_cuda_events(dev):

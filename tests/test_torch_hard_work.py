@@ -37,6 +37,14 @@ direct count by Python loops, and the plain model of that reduction
 (`triangle_gradients_torch`, one sum per pixel) within 1e-6 of its max
 |value| at A = 0, 1, 9 and 13: the reduction changes only the order of
 f32 sums.
+
+K4 runs K2's body without attributes: the same model at A = 0 equals the
+plain version of K4 (`rasterize_barycentric_cuda.
+triangle_gradients_bary_torch`) within 1e-6 of its max |value| on every
+scene, and, scattered to the vertices, the JAX package's K4
+(`_backward_pallas`, through `jax.grad` of
+`rasterize_barycentric_pallas_batched` in interpret mode) within 1e-5 of
+its max |value|, the JAX suite's gate between its backward backends.
 """
 
 import functools
@@ -45,13 +53,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pytorch_mesh_renderer_tpu.ops import camera as jcam
 from pytorch_mesh_renderer_tpu.ops.rasterize_pallas import (
-    rasterize_interpolate_pallas_batched)
+    rasterize_barycentric_pallas_batched, rasterize_interpolate_pallas_batched)
 from pytorch_mesh_renderer_tpu.ops.rasterize_xla import (
     rasterize_barycentric_xla)
+from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.utils import hard_work, test_utils
 
@@ -356,3 +366,62 @@ def test_k2_reduction_model_equals_the_plain_backward(scene, attr_count):
     scale = float(plain.abs().max())
     assert scale > 0.0
     assert float((model - plain).abs().max()) <= 1e-6 * scale
+
+
+# The barycentric-only backward K4 runs K2's body at A = 0: its plain
+# model is warp_gradients_torch without attributes.
+
+def _k4_operands(scene):
+    """(ids, bc, df/dbc, table, inv_abs_det) of a scene's plain forward,
+    df/dbc drawn from a seeded numpy generator, and the scene."""
+    clip, tris, attrs, width, height, ids, bc = _forward(scene)
+    table, inv_abs_det = rc.pack_rows(_t(clip), _t(tris), True)
+    df_dbc = _t(np.random.RandomState(11).randn(*bc.shape).astype(F32))
+    return (ids, bc, df_dbc, table, inv_abs_det), (clip, tris, width,
+                                                   height)
+
+
+def _k4_model(ids, bc, df_dbc, table, inv_abs_det):
+    no_attrs = torch.zeros(ids.shape + (0,))
+    corner = torch.zeros(table.shape[:2] + (3, 0))
+    return hard_work.warp_gradients_torch(ids, bc, df_dbc, no_attrs, table,
+                                          inv_abs_det, corner)
+
+
+@pytest.mark.parametrize("scene", ["random", "ties", "empty"])
+def test_k4_reduction_model_equals_the_plain_backward(scene):
+    operands, _ = _k4_operands(scene)
+    plain = rb.triangle_gradients_bary_torch(*operands)
+    model = _k4_model(*operands)
+    assert model.shape == plain.shape == (2, operands[3].shape[1], 9)
+    if scene == "empty":
+        assert plain.numel() == 0
+        return
+    scale = float(plain.abs().max())
+    assert scale > 0.0
+    assert float((model - plain).abs().max()) <= 1e-6 * scale
+
+
+def test_k4_reduction_model_matches_the_jax_kernel():
+    (ids, bc, df_dbc, table, inv_abs_det), (clip, tris, width, height) = (
+        _k4_operands("random"))
+    ours = rc.scatter_triangle_gradients(
+        _k4_model(ids, bc, df_dbc, table, inv_abs_det), _t(tris),
+        clip.shape[1])[0].numpy()
+
+    def loss(c):
+        bc_j = rasterize_barycentric_pallas_batched(
+            c, jnp.asarray(tris), width, height, interpret=True,
+            dot_precision="highest")[1]
+        return jnp.sum(bc_j * jnp.asarray(df_dbc.numpy()))
+
+    bc_j = np.asarray(rasterize_barycentric_pallas_batched(
+        jnp.asarray(clip), jnp.asarray(tris), width, height, interpret=True,
+        dot_precision="highest")[1])
+    np.testing.assert_allclose(bc.numpy(), bc_j, atol=2e-5)
+    theirs = np.asarray(jax.grad(loss)(jnp.asarray(clip)))
+    assert ours.shape == theirs.shape == clip.shape
+    scale = float(np.abs(theirs).max())
+    assert scale > 0.0
+    np.testing.assert_allclose(ours / scale, theirs / scale, rtol=0,
+                               atol=1e-5)

@@ -16,6 +16,14 @@ against the port's plain versions on the same seeded numpy inputs:
     Z_TOL = 1e-5 of the plain best, the edge values those of the pair the
     id names; an id may differ only where it names another valid pair
     within Z_TOL of the plain best z).
+
+The tc kernel culls triangles per warp region of 2x16 pixels before its
+products; `mxu_full.tc_keeps` is the plain model of that cull. It must be
+conservative: every pair the plain version counts inside and valid
+(`tc_pairs`) belongs to a triangle kept for its region, on the seed-0
+table and on a knife-edge table whose edges pass through the regions'
+corner pixel centres (`make_knife_edge_inputs`), where the same cull
+without its margin drops pairs.
 """
 
 import json
@@ -79,6 +87,9 @@ def test_main_on_the_cpu_prints_the_script_keys(capsys):
     assert printed["max_abs_z_gap"] <= mf.Z_TOL
     assert printed["prod_us"] > 0.0 and printed["tc_us"] > 0.0
     assert printed["speedup"] > 0.0 and printed["device"] == "cpu"
+    assert 0.0 < printed["tc_kept_fraction"] <= printed[
+        "tc_group_fraction"] <= 1.0
+    assert printed["tc_busiest_groups"] >= 1
 
 
 def test_tc_gate_refuses_a_moved_winner():
@@ -156,3 +167,73 @@ def test_the_kernels_need_a_card():
         mf.launch_prod(data, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         mf.launch_tc(coeff, 4, 8)
+
+
+def _inputs(table):
+    """(coeff, visits, chunk) of the seed-0 or the knife-edge table."""
+    if table == "seed 0":
+        return mf.make_inputs(VISITS, 8, "cpu")[1], VISITS, 8
+    return mf.make_knife_edge_inputs("cpu")[1:]
+
+
+def _dropped_inside_pairs(coeff, visits, chunk):
+    """Pairs valid in the plain version whose triangle tc_keeps drops for
+    the pixel's region, and the valid pairs."""
+    valid = mf.tc_pairs(coeff, visits, chunk)[4]  # [T, 2048]
+    keeps = mf.tc_keeps(coeff, visits, chunk)  # [8, 8, T]
+    per_pixel = keeps.repeat_interleave(mf.REGION_H, 0).repeat_interleave(
+        mf.REGION_W, 1).reshape(-1, keeps.shape[-1]).T
+    return int((valid & ~per_pixel).sum()), int(valid.sum())
+
+
+@pytest.mark.parametrize("table", ["seed 0", "knife edge"])
+def test_tc_cull_keeps_every_inside_pair(table):
+    coeff, visits, chunk = _inputs(table)
+    dropped, valid = _dropped_inside_pairs(coeff, visits, chunk)
+    assert valid > 0 and dropped == 0
+    counts = mf.tc_cull_counts(coeff, visits, chunk)
+    assert counts["pairs"] == visits * chunk * 2048
+    assert valid <= counts["kept_pairs"] <= counts["group_pairs"] <= counts[
+        "pairs"]
+    assert counts["kept_fraction"] == counts["kept_pairs"] / counts["pairs"]
+    # The cull drops most pairs: a triangle is kept for few regions.
+    assert counts["kept_fraction"] < 0.5
+
+
+def test_knife_edge_table_defeats_a_cull_without_margin(monkeypatch):
+    coeff, visits, chunk = _inputs("knife edge")
+    monkeypatch.setattr(mf, "CULL_MARGIN", 0.0)
+    dropped, _ = _dropped_inside_pairs(coeff, visits, chunk)
+    assert dropped > 0
+
+
+def test_knife_edge_table_holds_both_plain_versions():
+    data, coeff, visits, chunk = mf.make_knife_edge_inputs("cpu")
+    assert coeff.shape == (visits * 5 * chunk, 8)
+    prod = mf.zbuffer_prod_torch(data)
+    assert bool((prod[1] >= 0).all())  # every pixel covered
+    pairs = mf.tc_pairs(coeff, visits, chunk)
+    assert mf.check_tc(mf.zbuffer_tc_torch(coeff, visits, chunk),
+                       pairs) == (0, 0.0, 0.0)
+
+
+def test_tc_groups_round_each_region_and_stage_up_to_8():
+    # 37 visits of 8: one split of 296 triangles, staged as 128, 128 and 40.
+    # Triangles 0-8, 128 and 256 have every edge +1 (kept everywhere); the
+    # others have an edge of -1 (dropped everywhere). Per region: 9 kept in
+    # stage 0 -> 2 groups, 1 in each later stage -> 1 group each.
+    visits, chunk = 37, 8
+    coeff = torch.zeros(visits, 5, chunk, 8)
+    coeff[:, :3, :, 2] = 1.0
+    kept = [*range(9), 128, 256]
+    dropped = torch.ones(visits * chunk, dtype=torch.bool)
+    dropped[kept] = False
+    coeff[:, 0, :, 2][dropped.view(visits, chunk)] = -1.0  # edge e0's c
+    coeff = coeff.reshape(-1, 8)
+    keeps = mf.tc_keeps(coeff, visits, chunk)  # [8, 8, 296]
+    assert keeps.nonzero()[:, 2].unique().tolist() == kept
+    region_px = mf.REGION_H * mf.REGION_W
+    counts = mf.tc_cull_counts(coeff, visits, chunk)
+    assert counts["kept_pairs"] == 64 * 11 * region_px
+    assert counts["group_pairs"] == 64 * 4 * 8 * region_px
+    assert counts["busiest_groups"] == 2
