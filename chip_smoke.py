@@ -56,8 +56,10 @@ The soft (SoftRas) renderer's phases follow:
                scene, the cube, random scenes with 1 and 3 lights, the
                edge scenes (65 and 0 lights, a quad of two triangles
                filling a 256x256 frame, a batch whose second image holds no
-               valid pair, whose gradients must be exactly 0), two row
-               strips against the full image, the zero-triangle mesh, the
+               valid pair, whose gradients must be exactly 0, and a sphere
+               at 45x31 whose edges run through pixel centres, where a
+               corner weight is exactly 0: test_utils.on_edges_arrays), two
+               row strips against the full image, the zero-triangle mesh, the
                256x256 batch-4 teapot and a sphere of 49,298 triangles at
                64x64 in one launch per kernel and split. K7 and K5 run at
                their compiled split and at each split tried (clusters of 4
@@ -111,6 +113,19 @@ pytorch_mesh_renderer_tpu_torch/microbench/, follow:
                each kernel's device time (torch.profiler), its plain
                version's and, for mxu_edge, torch.matmul + sum's.
 
+The training step and loop, and the bench, follow:
+
+ 14. loop    — `parallel.make_train_step` and `make_train_loop` on the
+               card (each captures its step into a CUDA graph): for the
+               hard step, the soft step at 128x128, the silhouette step and
+               bench.py's pose fit, 3 steps of the loop, 3 calls of the
+               step and 3 eager steps from one start agree in losses and
+               parameters (bit for bit where two eager runs do, else within
+               1e-4, the eager spread printed beside it); then the bench's
+               hard, soft 128^2, silhouette 128^2 and pose modes
+               (`python -m pytorch_mesh_renderer_tpu_torch.bench`) in
+               process with fewer iterations, each JSON line printed.
+
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, fp32 at 67 TFLOP/s and tensor-core TF32 at 495
@@ -123,7 +138,6 @@ any result.
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -154,23 +168,6 @@ KERNELS = {
     "patch_eval": (CSRC + "patch_eval.cu",
                    "scripts/patch_scatter_microbench.py:191"),
 }
-# The card's published peaks (H100 SXM data sheet, at 700 W): device
-# memory bytes/s and fp32 operations/s outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# Dense tensor-core products (the same data sheet).
-PEAK_TF32_PER_S = 495e12
-PEAK_BF16_PER_S = 989e12
-# fp32 operations per (pixel, triangle) pair, read off the kernel bodies.
-# Hard kernels: 3 edge functions (12), the z interpolation and depth test
-# (6). Soft kernels: bench.py:321-348's constants for the full forward
-# (K7) and backward (K8), per light L; the silhouette forward (K5) keeps
-# their geometry terms (barycentrics 12, segment distances 42, edge pick /
-# perspective / L1 27, sigmoid / z 26, the product 2) and its backward
-# (K6) adds the coverage chain and the six edge columns (~60).
-HARD_OPS_PER_PAIR = 18
-SOFT_OPS_PER_PAIR = {"soft_fwd": (215, 23), "soft_bwd": (645, 63),
-                     "soft_sil_fwd": (110, 0), "soft_sil_bwd": (170, 0)}
 # Forward kernels vs plain versions: both run the same fp32 operations in
 # the same order (the kernels are built with --fmad=false), so they should
 # agree to the last bit; 1e-6 leaves room for nothing but that.
@@ -206,14 +203,6 @@ def log(phase, message):
     print(f"[{phase}] {message}", flush=True)
 
 
-def gpu_name_and_power_limit():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return proc.stdout.strip().splitlines()[0].strip()
-
-
 def cuda_time_ms(fn, iters, windows=5, warmup=3):
     """Median over `windows` of the mean per-call time, by CUDA events
     (microbench.common.wall_ms on the card)."""
@@ -243,36 +232,6 @@ def grad_error(name, label, kernel, plain, rtol):
     return err, scale
 
 
-def bound_ms(n_bytes, n_ops, tensor_ops=0, tensor_peak=PEAK_TF32_PER_S):
-    """(least time in ms, what bounds it) for moving n_bytes through device
-    memory, doing n_ops fp32 operations and tensor_ops tensor-core
-    operations at tensor_peak, at the card's peaks (the units run at once:
-    the larger time bounds)."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = max(n_ops / PEAK_FP32_PER_S, tensor_ops / tensor_peak)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def pixel_pairs(x_lo, x_hi, y_lo, y_hi, keep, width, height):
-    """Sum over triangles of the pixel centres inside [x_lo, x_hi] x
-    [y_lo, y_hi] (NDC, [B, T] each) where keep: the (pixel, triangle) pairs
-    a rasterizer must test."""
-    import torch
-
-    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-
-    px, py = sc.pixel_centers(width, height, 0, height, keep.device)
-    py = py.flip(0)  # ascending, as searchsorted wants
-
-    def inside(centres, lo, hi):
-        return (torch.searchsorted(centres, hi.contiguous(), right=True)
-                - torch.searchsorted(centres, lo.contiguous())).clamp(min=0)
-
-    return int((keep * inside(px, x_lo, x_hi)
-                * inside(py, y_lo, y_hi)).sum())
-
-
 # The repository's kernels by their __global__ names in csrc/.
 KERNEL_NAME = re.compile(r"(rasterize|soft)\w*_kernel")
 
@@ -287,6 +246,26 @@ def kernel_device_ms(by_name):
     return ", ".join(
         f"{match.group(0)} {t:.4f} ms" for name, t in by_name.items()
         for match in [KERNEL_NAME.search(name)] if match)
+
+
+def reset_hard_launch_counts():
+    from pytorch_mesh_renderer_tpu_torch.ops import (
+        rasterize_barycentric_cuda as rb)
+    from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
+
+    rc.LAUNCHES = rc.BWD_LAUNCHES = 0
+    rb.FWD_LAUNCHES = rb.BWD_LAUNCHES = 0
+
+
+def hard_launch_counts():
+    from pytorch_mesh_renderer_tpu_torch.ops import (
+        rasterize_barycentric_cuda as rb)
+    from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
+
+    return {"rasterize_fused_fwd": rc.LAUNCHES,
+            "rasterize_fused_bwd": rc.BWD_LAUNCHES,
+            "rasterize_bary_fwd": rb.FWD_LAUNCHES,
+            "rasterize_bary_bwd": rb.BWD_LAUNCHES}
 
 
 def reset_soft_launch_counts():
@@ -320,6 +299,7 @@ def fit_phase(dev, card):
     from pytorch_mesh_renderer_tpu_torch.ops import losses, mesh
     from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+    from pytorch_mesh_renderer_tpu_torch.utils.cost import pixel_pairs
 
     f32 = dict(dtype=torch.float32, device=dev)
     plain_cfg = config_lib.SoftRasterizerConfig(backend="torch")
@@ -492,6 +472,8 @@ def soft_phases(dev, card, teapot):
     from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
     from pytorch_mesh_renderer_tpu_torch.utils import kernels, soft_work
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+    from pytorch_mesh_renderer_tpu_torch.utils.cost import (
+        SOFT_OPS_PER_PAIR, bound_ms, pixel_pairs)
 
     names = ("soft_sil_fwd", "soft_sil_bwd", "soft_fwd", "soft_bwd")
     errors = {name: 0.0 for name in names}
@@ -815,6 +797,8 @@ def microbench_phase(dev, card):
     import torch
 
     from pytorch_mesh_renderer_tpu_torch.microbench import common
+    from pytorch_mesh_renderer_tpu_torch.utils.cost import (
+        PEAK_BF16_PER_S, PEAK_TF32_PER_S, bound_ms)
     from pytorch_mesh_renderer_tpu_torch.microbench import mxu_edge as me
     from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
     from pytorch_mesh_renderer_tpu_torch.microbench import (
@@ -995,6 +979,121 @@ def microbench_phase(dev, card):
     return errors, rel_errors, launches, ms, plain_ms, library_ms, bounds
 
 
+def loop_phase(dev, card, teapot):
+    """Phase 14: the captured training step and loop
+    (`parallel.make_train_step`, `make_train_loop`) and the bench.
+
+    Equality: for the hard step, the soft step at 128^2, the silhouette
+    step (teapot, batch 4, SGD on the vertices) and the pose fit (bench.py's
+    cube, Adam 5e-2), with the bench's losses (`bench.render_step_loss`,
+    `bench.pose_problem`), K steps of the loop, K calls of the step and K eager
+    steps from the same start, in losses and parameters. Two eager runs
+    are compared first: where they agree bit for bit, the captured runs
+    must too; where the backward's atomics make them differ, the captured
+    runs are held to TRAIN_RTOL (losses relative, the parameters' change
+    relative to its max |value|) and the eager spread is printed beside
+    it. Then the bench's hard, soft 128^2, silhouette 128^2 and pose modes
+    in-process with fewer iterations, each JSON line printed. The kernels'
+    launch counters count the launches of each step's eager warm-up and of
+    its capture, none of the replays: phase 14 requires each mode's
+    kernels at least once. Returns its launch counts."""
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import bench, parallel
+
+    steps = 3
+    pose_loss, pose_batch, _ = bench.pose_problem(128, dev)
+    fits = {
+        "hard step": (bench.render_step_loss(teapot, TEAPOT_SIZE),
+                      teapot["vertices"], None, 1.0),
+        "soft step 128^2": (bench.render_step_loss(teapot, 128, soft=True),
+                            teapot["vertices"], None, 1.0),
+        f"silhouette step {TEAPOT_SIZE}^2": (
+            bench.render_step_loss(teapot, TEAPOT_SIZE, soft=True,
+                                   silhouette=True),
+            teapot["vertices"], None, 1.0),
+        "pose fit": (pose_loss, torch.zeros(3, dtype=torch.float32,
+                                            device=dev), pose_batch, None),
+    }
+
+    def run(kind, loss_fn, start, batch, sgd_lr):
+        """(K losses, the parameter after K steps) of one run from
+        `start`: eager steps, make_train_step or make_train_loop."""
+        param = start.detach().clone().requires_grad_(True)
+        optimizer = (torch.optim.SGD([param], lr=sgd_lr) if sgd_lr else
+                     torch.optim.Adam([param], lr=5e-2, capturable=True))
+        if kind == "loop":
+            run_losses = parallel.make_train_loop(loss_fn, optimizer,
+                                                  steps)(batch)
+        elif kind == "step":
+            step = parallel.make_train_step(loss_fn, optimizer)
+            run_losses = torch.stack([step(batch) for _ in range(steps)])
+        else:
+            run_losses = []
+            for _ in range(steps):
+                optimizer.zero_grad(set_to_none=True)
+                loss = loss_fn([param], batch)
+                loss.backward()
+                optimizer.step()
+                run_losses.append(loss.detach())
+            run_losses = torch.stack(run_losses)
+        torch.cuda.synchronize()
+        return run_losses, param.detach()
+
+    def gaps(a, b, start):
+        """(max relative loss gap, max gap of the parameters' change over
+        its max |value|) between two runs."""
+        change = (a[1] - start).abs().max()
+        return (float(((a[0] - b[0]) / b[0]).abs().max()),
+                float((a[1] - b[1]).abs().max() / change))
+
+    reset_hard_launch_counts()
+    reset_soft_launch_counts()
+    for label, (loss_fn, start, batch, sgd_lr) in fits.items():
+        eager = run("eager", loss_fn, start, batch, sgd_lr)
+        spread = gaps(run("eager", loss_fn, start, batch, sgd_lr), eager,
+                      start)
+        bitwise = spread == (0.0, 0.0)
+        found = []
+        for kind in ("step", "loop"):
+            got = run(kind, loss_fn, start, batch, sgd_lr)
+            if bitwise and not (torch.equal(got[0], eager[0])
+                                and torch.equal(got[1], eager[1])):
+                raise AssertionError(f"{label}: {kind} differs from the "
+                                     "eager steps, which repeat bit for bit")
+            found.append(gaps(got, eager, start))
+            if not max(found[-1]) <= TRAIN_RTOL:
+                raise AssertionError(f"{label}: {kind} vs eager {found[-1]} "
+                                     f"> {TRAIN_RTOL}")
+        gate = "bit for bit" if bitwise else f"gate {TRAIN_RTOL}"
+        log("loop", f"{label}: {steps} steps of make_train_loop == "
+            f"make_train_step == eager ({gate}): loss and parameter-change "
+            f"gaps step {found[0][0]:.3g} / {found[0][1]:.3g}, loop "
+            f"{found[1][0]:.3g} / {found[1][1]:.3g}; two eager runs "
+            f"{spread[0]:.3g} / {spread[1]:.3g}; losses "
+            f"{[round(float(x), 6) for x in eager[0]]}")
+
+    # The bench's modes, at their default sizes with fewer iterations.
+    for argv in (["--iters", "5"], ["--soft", "--size", "128", "--iters", "5"],
+                 ["--soft", "--silhouette", "--size", "128", "--iters", "5"],
+                 ["--pose", "--steps", "100"]):
+        for record in bench.main(argv):
+            if not (record["value"] > 0 and record["device_ms_per_step"]
+                    and record["eager_ms_per_step"] > 0):
+                raise AssertionError(f"bench {argv}: {record}")
+            log("loop", f"{card} | bench {' '.join(argv)}: "
+                + json.dumps(record))
+    torch.cuda.synchronize()
+    launches = {**hard_launch_counts(), **soft_launch_counts()}
+    for name in ("rasterize_fused_fwd", "rasterize_fused_bwd", "soft_fwd",
+                 "soft_bwd", "soft_sil_fwd", "soft_sil_bwd"):
+        if launches[name] < 1:
+            raise AssertionError(f"loop phase: {name} was not launched")
+    log("loop", f"launches (eager warm-ups and captures; replays are not "
+        f"counted) {launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1002,11 +1101,13 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU.", file=sys.stderr)
         return 2
+    started = time.perf_counter()
 
     import numpy as np
 
     sys.path.insert(0, REPO)
     from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.microbench import common
     from pytorch_mesh_renderer_tpu_torch.models import mesh_renderer
     from pytorch_mesh_renderer_tpu_torch.ops import camera
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
@@ -1016,6 +1117,8 @@ def main():
     from pytorch_mesh_renderer_tpu_torch.utils import (hard_work, kernels,
                                                        scenes, soft_work)
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+    from pytorch_mesh_renderer_tpu_torch.utils.cost import (
+        HARD_OPS_PER_PAIR, bound_ms, pixel_pairs)
 
     golden_dir = os.path.join(REPO, "tests", "golden")
     oracle_path = os.path.join(REPO, "tests", "oracle",
@@ -1024,7 +1127,7 @@ def main():
     f32 = dict(dtype=torch.float32, device=dev)
 
     # 1. Device.
-    card = gpu_name_and_power_limit()
+    card = common.card_line()
     log("device", f"{torch.cuda.get_device_name(0)}; count "
         f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -1291,21 +1394,11 @@ def main():
     compare_backward(f"teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH} A=9",
                      *teapot_raster, TEAPOT_SIZE, TEAPOT_SIZE)
 
-    def reset_launch_counts():
-        rc.LAUNCHES = rc.BWD_LAUNCHES = 0
-        rb.FWD_LAUNCHES = rb.BWD_LAUNCHES = 0
-
-    def launch_counts():
-        return {"rasterize_fused_fwd": rc.LAUNCHES,
-                "rasterize_fused_bwd": rc.BWD_LAUNCHES,
-                "rasterize_bary_fwd": rb.FWD_LAUNCHES,
-                "rasterize_bary_bwd": rb.BWD_LAUNCHES}
-
     # 4. The main path.
-    reset_launch_counts()
+    reset_hard_launch_counts()
     images = mesh_renderer.render(*scene_args, TEAPOT_SIZE, TEAPOT_SIZE)
     torch.cuda.synchronize()
-    main_launches = launch_counts()
+    main_launches = hard_launch_counts()
     if main_launches["rasterize_fused_fwd"] < 1:
         raise AssertionError("render did not launch the CUDA kernel")
     if tuple(images.shape) != (TEAPOT_BATCH, TEAPOT_SIZE, TEAPOT_SIZE, 4):
@@ -1386,10 +1479,10 @@ def main():
         loss.backward()
         return loss, vertices.grad
 
-    reset_launch_counts()
+    reset_hard_launch_counts()
     loss, grad = train_step()
     torch.cuda.synchronize()
-    train_launches = launch_counts()
+    train_launches = hard_launch_counts()
     for name in ("rasterize_fused_fwd", "rasterize_fused_bwd"):
         if train_launches[name] < 1:
             raise AssertionError(f"the training step did not launch {name}")
@@ -1428,7 +1521,7 @@ def main():
     desired = render_with_rotation(torch.tensor([[-20.0, 0.0, 60.0]], **f32))
     angles = torch.zeros(1, 3, requires_grad=True, **f32)
     optimizer = torch.optim.SGD([angles], lr=0.7, momentum=0.1)
-    reset_launch_counts()
+    reset_hard_launch_counts()
     for _ in range(35):
         optimizer.zero_grad()
         loss = torch.mean(torch.abs(render_with_rotation(angles) - desired))
@@ -1438,7 +1531,7 @@ def main():
     with torch.no_grad():
         final = render_with_rotation(angles)
     torch.cuda.synchronize()
-    rotation_launches = launch_counts()
+    rotation_launches = hard_launch_counts()
     if rotation_launches["rasterize_fused_bwd"] < 35:
         raise AssertionError(f"cube rotation: launches {rotation_launches}")
     golden = os.path.join(golden_dir, "Gray_Cube_0.png")
@@ -1454,14 +1547,14 @@ def main():
     # 6. The barycentric-only entry point, one teapot image at a time (it
     # is unbatched), with a backward.
     weights = cotangents((TEAPOT_SIZE, TEAPOT_SIZE, 3))
-    reset_launch_counts()
+    reset_hard_launch_counts()
     bary_clip = teapot_clip.detach().clone().requires_grad_(True)
     bary_out = [rasterize_ops.rasterize_barycentric(
         bary_clip[b], teapot["triangles"], TEAPOT_SIZE, TEAPOT_SIZE)
         for b in range(TEAPOT_BATCH)]
     sum((bc * weights).sum() for _, bc, _ in bary_out).backward()
     torch.cuda.synchronize()
-    bary_launches = launch_counts()
+    bary_launches = hard_launch_counts()
     for name in ("rasterize_bary_fwd", "rasterize_bary_bwd"):
         if bary_launches[name] < 1:
             raise AssertionError(f"rasterize_barycentric did not launch "
@@ -1660,6 +1753,12 @@ def main():
     launches.update(mb_launches)
     ms.update({name: (mb_ms[name], mb_plain_ms[name]) for name in mb_ms})
     bounds.update(mb_bounds)
+
+    # 14. The captured training step and loop, and the bench.
+    t0 = time.perf_counter()
+    loop_phase(dev, card, teapot)
+    log("loop", f"phase 14 took {time.perf_counter() - t0:.1f} s; the "
+        f"script {time.perf_counter() - started:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -77,8 +77,10 @@ __device__ __forceinline__ constexpr int grad_col(int i) {
   return i < 18 ? i : i + 8;
 }
 
+// d|v|/dv, +1 at v = 0 as jnp.abs's derivative and the plain route's
+// (a pixel centre on an edge has a corner weight of exactly 0).
 __device__ __forceinline__ float sign_of(float v) {
-  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+  return v >= 0.0f ? 1.0f : -1.0f;
 }
 
 __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(

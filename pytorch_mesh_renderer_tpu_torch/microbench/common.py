@@ -6,6 +6,7 @@ operand checks and launch, devices and timers."""
 from __future__ import annotations
 
 import statistics
+import subprocess
 import sys
 import time
 
@@ -89,6 +90,16 @@ def device_name(device: torch.device) -> str:
     """The card's name, or `cpu`: the JSON lines' `device`."""
     return (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+
+
+def card_line() -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (its first card)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0].strip()
 
 
 def check_operands(device: torch.device, operands) -> None:

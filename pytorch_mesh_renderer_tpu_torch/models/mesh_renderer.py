@@ -10,7 +10,9 @@ Triangle winding: clockwise as seen from the viewer.
 
 Tensors are never moved between devices: every tensor argument must lie on
 the device of `vertices`; Python numbers and sequences are materialised
-there.
+there (`utils/capture.constant`: a number by a device fill, a sequence or
+array copied once per device, so a step that passes them can be captured
+into a CUDA graph after its warm-up).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..ops import camera
 from ..ops.math_utils import normalize
 from ..ops.rasterize import rasterize
 from ..ops.shading import phong_shader, tone_mapper  # re-export: tone_mapper
+from ..utils.capture import constant
 from ..utils.debug import debug_check_finite
 
 __all__ = ["render", "MeshRenderer", "phong_shader", "tone_mapper"]
@@ -36,7 +39,7 @@ def _as_f32(value, device, name):
                 f"{name} lies on {value.device}, but vertices lie on "
                 f"{device}; move it explicitly.")
         return value.to(torch.float32)
-    return torch.as_tensor(value, dtype=torch.float32, device=device)
+    return constant(value, device)
 
 
 def _vertices_and_triangles(vertices, triangles):
@@ -52,9 +55,10 @@ def _vertices_and_triangles(vertices, triangles):
             "Vertices must have shape [batch_size, vertex_count, 3].")
     if not torch.is_tensor(triangles):
         # A reversed view such as tris[:, ::-1] has negative strides, which
-        # torch.as_tensor refuses; jnp.asarray takes it.
-        triangles = torch.as_tensor(np.ascontiguousarray(triangles),
-                                    device=device)
+        # torch.as_tensor refuses; jnp.asarray takes it. The copy to the
+        # device is made once per array (utils/capture.constant).
+        triangles = constant(np.ascontiguousarray(triangles), device,
+                             torch.int32)
     elif triangles.device != device:
         raise ValueError(
             f"triangles lie on {triangles.device}, but vertices lie on "

@@ -13,7 +13,11 @@ the same way on the CPU and on the card.
 
 `look_at` checks for degenerate cameras eagerly on every call (PyTorch has
 no tracing to hide the values), raising AssertionError as the JAX
-package's eager path does.
+package's eager path does. The check reads the values on the host, so it
+is skipped while the card's stream captures a CUDA graph (a step of
+`parallel.make_train_step`), as the JAX package skips it under `jit`
+(`pytorch_mesh_renderer_tpu/ops/camera.py:91-99`); every camera such a
+step renders was checked in its eager warm-up.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.capture import capturing
 
 _DEGENERACY_CUTOFF = 1e-6
 
@@ -59,6 +65,8 @@ def euler_matrices(angles: torch.Tensor) -> torch.Tensor:
 
 
 def _check_not_degenerate(norm: torch.Tensor, message: str) -> None:
+    if capturing(norm):
+        return
     if not bool(torch.all(norm > _DEGENERACY_CUTOFF)):
         raise AssertionError(message)
 
@@ -100,16 +108,15 @@ def look_at(eye: torch.Tensor, center: torch.Tensor,
     to_side = to_side / to_side_norm
     cam_up = torch.linalg.cross(to_side, forward, dim=1)
 
-    zeros_col = torch.zeros([batch_size, 3, 1], dtype=torch.float32,
-                            device=eye.device)
-    w_row = torch.tensor([[[0.0, 0.0, 0.0, 1.0]]], dtype=torch.float32,
-                         device=eye.device).expand(batch_size, 1, 4)
+    f32 = dict(dtype=torch.float32, device=eye.device)
+    zeros_col = torch.zeros([batch_size, 3, 1], **f32)
+    w_row = torch.cat([torch.zeros([batch_size, 1, 3], **f32),
+                       torch.ones([batch_size, 1, 1], **f32)], dim=2)
     rotation = torch.stack([to_side, cam_up, -forward], dim=1)  # [B, 3, 3]
     view_rotation = torch.cat(
         [torch.cat([rotation, zeros_col], dim=2), w_row], dim=1)
 
-    identity = torch.eye(3, dtype=torch.float32,
-                         device=eye.device).expand(batch_size, 3, 3)
+    identity = torch.eye(3, **f32).expand(batch_size, 3, 3)
     view_translation = torch.cat(
         [torch.cat([identity, -eye[:, :, None]], dim=2), w_row], dim=1)
     return _bmm4(view_rotation, view_translation)

@@ -54,8 +54,13 @@ def laplacian_smoothing_loss(vertices: torch.Tensor,
 
 def image_l1_loss(rendered: torch.Tensor,
                   target: torch.Tensor) -> torch.Tensor:
-    """Mean absolute pixel error."""
-    return torch.mean(torch.abs(rendered - target))
+    """Mean absolute pixel error.
+
+    Where a pixel equals its target the derivative is +1 / N, as
+    `jnp.abs`'s is (torch.abs's is 0 there).
+    """
+    diff = rendered - target
+    return torch.mean(torch.where(diff >= 0.0, diff, -diff))
 
 
 def silhouette_mse_loss(rendered_alpha: torch.Tensor,

@@ -47,7 +47,10 @@ def compute_edges_list(triangles) -> torch.Tensor:
 
     The pairs (v0, v1), (v1, v2), (v0, v2) of every face, deduplicated as
     ordered pairs and sorted, as `pytorch_mesh_renderer_tpu/ops/mesh.py:50`
-    does. Computed on the host.
+    does. Computed on the host: it waits for the card and copies the
+    triangles there and back, so it belongs in a loss's setup, outside a
+    step that `parallel.make_train_step` captures into a CUDA graph (such
+    a capture raises on the copy).
 
     Args:
       triangles: [triangle_count, 3] int tensor or array.

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as config_lib
+from ..utils.capture import constant
 from . import camera
 from .rasterize_barycentric_cuda import (rasterize_barycentric_cuda,
                                          rasterize_barycentric_torch)
@@ -130,6 +131,7 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
         raise ValueError(
             f"background_value lies on {background_value.device}, but the "
             f"vertices lie on {device}; move it explicitly.")
-    background_value = torch.as_tensor(background_value, dtype=torch.float32,
-                                       device=device)
+    background_value = (background_value.to(torch.float32)
+                        if torch.is_tensor(background_value)
+                        else constant(background_value, device))
     return alphas * attribute_images + (1.0 - alphas) * background_value

@@ -33,6 +33,8 @@ from . import rasterize_cuda as rc
 
 # Launches of the forward (K3) and backward (K4) kernels in this process;
 # each wrapper adds one per launch and nothing else touches them.
+# A launch recorded into a CUDA graph (parallel/sharded.py) counts once,
+# at the capture; the graph's replays do not count.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 

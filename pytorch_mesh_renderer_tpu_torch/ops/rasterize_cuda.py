@@ -55,7 +55,8 @@ TRI_COLS = 16
 # Launches of the forward (K1) and backward (K2) kernels in this process;
 # each wrapper adds one per launch and nothing else touches them.
 # chip_smoke.py resets and reads them to show that a run went through the
-# kernels.
+# kernels. A launch recorded into a CUDA graph (parallel/sharded.py)
+# counts once, at the capture; the graph's replays do not count.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.capture import constant
 from .math_utils import normalize
 
 
@@ -87,9 +88,9 @@ def phong_shader(normals, alphas, pixel_positions, light_positions,
             normals_dot_lights != 0.0, reflection_dot_camera, 0.0)
         reflection_dot_camera = reflection_dot_camera.reshape(
             batch_size, light_count, image_height, image_width)
-        shininess = torch.as_tensor(shininess_coefficients,
-                                    dtype=torch.float32,
-                                    device=normals.device)
+        shininess = (shininess_coefficients.to(torch.float32)
+                     if torch.is_tensor(shininess_coefficients)
+                     else constant(shininess_coefficients, normals.device))
         shininess = shininess[:, None] if shininess.dim() > 0 else shininess
         specularity = torch.pow(reflection_dot_camera, shininess).reshape(
             batch_size, light_count, pixel_count, 1)

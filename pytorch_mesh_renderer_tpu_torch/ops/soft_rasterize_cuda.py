@@ -63,7 +63,8 @@ NEG_BIG = -1e30
 # Launches of K7 (FWD), K8 (BWD), K5 (SIL_FWD) and K6 (SIL_BWD) in this
 # process; each launcher adds one per launch and nothing else touches them.
 # chip_smoke.py resets and reads them to show that a run went through the
-# kernels.
+# kernels. A launch recorded into a CUDA graph (parallel/sharded.py)
+# counts once, at the capture; the graph's replays do not count.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SIL_FWD_LAUNCHES = 0
@@ -151,7 +152,7 @@ def _as_scalar(value, device, name):
             raise ValueError(f"{name} must be a scalar, got shape "
                              f"{tuple(value.shape)}")
         return value.to(torch.float32).reshape(())
-    return torch.tensor(float(value), dtype=torch.float32, device=device)
+    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def make_params(sigma, gamma, blur_radius, row_offset, device):
@@ -232,7 +233,11 @@ def _chunk_quantities(blk, px, py, lights, sigma, gamma, sq_blur, shade):
           torch.where(pick01, zero, torch.where(pick12, t12, 1.0 - t20))]
     cb = [torch.where(inside, b, e) for b, e in zip(bc, eb)]
     ow = [cb[k] * col(53 + k) for k in range(3)]
-    denom = ow[0].abs() + ow[1].abs() + ow[2].abs()
+    # |ow| with d|ow|/dow = +1 at ow = 0, the derivative jnp.abs takes
+    # (torch.abs takes 0 there, which breaks sum(sb) = 1 in the chain rule
+    # at pixel centres on an edge, where a corner's ow is exactly 0).
+    abs_ow = [torch.where(o >= 0.0, o, -o) for o in ow]
+    denom = abs_ow[0] + abs_ow[1] + abs_ow[2]
     inv_denom = 1.0 / torch.clamp(denom, min=1e-12)
     sb = [o * inv_denom for o in ow]
     z_ndc = sb[0] * col(15) + sb[1] * col(16) + sb[2] * col(17)

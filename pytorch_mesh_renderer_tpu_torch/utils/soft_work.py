@@ -80,19 +80,7 @@ def pair_counts(table, width, height, sq_blur, split=8, row_offset=0,
     batch, n_tri = table.shape[:2]
     px, py = pixel_centers(width, height, row_offset, full_height, device)
     nbx, nby = -(-width // BLOCK), -(-height // BLOCK)
-    x0 = torch.arange(nbx, device=device) * BLOCK
-    y0 = torch.arange(nby, device=device) * BLOCK
-    # The blocks' pixel-centre extents (py falls as the row grows).
-    px_lo, px_hi = px[x0], px[(x0 + BLOCK).clamp(max=width) - 1]
-    py_hi, py_lo = py[y0], py[(y0 + BLOCK).clamp(max=height) - 1]
-
-    def col(k):
-        return table[..., k][:, None, None, :]  # [B, 1, 1, T]
-
-    staged = ((col(21) > 0.0) & (col(23) >= px_lo[None, None, :, None])
-              & (col(22) <= px_hi[None, None, :, None])
-              & (col(25) >= py_lo[None, :, None, None])
-              & (col(24) <= py_hi[None, :, None, None]))  # [B, nby, nbx, T]
+    staged = staged_rows(table, width, height, row_offset, full_height)
     parts = torch.stack([staged[..., s::split].sum(-1)
                          for s in range(split)], -1)
     warp_counts = torch.zeros(batch, nby, nbx, WARPS, dtype=torch.int64,
@@ -128,6 +116,31 @@ def pair_counts(table, width, height, sq_blur, split=8, row_offset=0,
         "busiest_warp": int(warp_counts.max()),
         "busiest_split_warp": int((-(-parts // WARPS)).max()) if n_tri else 0,
     }
+
+
+def staged_rows(table, width, height, row_offset=0, full_height=None):
+    """[B, ceil(H/16), ceil(W/16), T] bool: the rows of `table` [B, T, 59]
+    that the soft kernels' block cull stages for each image and 16x16
+    pixel block: kept, with the block's pixel-centre extent inside the
+    row's blur-inflated bbox."""
+    from ..ops.soft_rasterize_cuda import pixel_centers
+
+    device = table.device
+    px, py = pixel_centers(width, height, row_offset,
+                           full_height or height, device)
+    x0 = torch.arange(-(-width // BLOCK), device=device) * BLOCK
+    y0 = torch.arange(-(-height // BLOCK), device=device) * BLOCK
+    # The blocks' pixel-centre extents (py falls as the row grows).
+    px_lo, px_hi = px[x0], px[(x0 + BLOCK).clamp(max=width) - 1]
+    py_hi, py_lo = py[y0], py[(y0 + BLOCK).clamp(max=height) - 1]
+
+    def col(k):
+        return table[..., k][:, None, None, :]  # [B, 1, 1, T]
+
+    return ((col(21) > 0.0) & (col(23) >= px_lo[None, None, :, None])
+            & (col(22) <= px_hi[None, None, :, None])
+            & (col(25) >= py_lo[None, :, None, None])
+            & (col(24) <= py_hi[None, :, None, None]))
 
 
 def _valid(r, px, py, sq_blur):

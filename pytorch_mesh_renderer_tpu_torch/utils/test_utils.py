@@ -226,9 +226,14 @@ SOFT_SIGMA, SOFT_GAMMA, SOFT_BLUR = 1e-3, 1e-2, 0.08
 SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
 # Scenes at K8's edges: 65 and 0 lights (the kernels cap none), a quad of
 # two triangles filling a 256x256 frame (one triangle covers every pixel
-# block, so every CTA of a block's split walks all its row pairs) and a
-# batch whose second image holds no valid pair.
-SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image")
+# block, so every CTA of a block's split walks all its row pairs), a
+# batch whose second image holds no valid pair, and a sphere whose edges
+# run through pixel centres (`on_edges_arrays`: a corner weight exactly 0,
+# where d|ow|/dow must be +1).
+SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image", "on_edges")
+# The on_edges scene's image and soft parameters.
+ON_EDGES_SIZE = (45, 31)
+ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR = 1e-4, 1e-3, 0.05
 # Forward gates (tests/test_soft_pallas.py:62, the JAX suite's gate between
 # its two soft backends). The kernels aggregate the softmax per triangle,
 # the plain version per chunk of triangles, so rgb differs in the last
@@ -297,13 +302,38 @@ def clip_from_eye(world, eye, width, height):
     return camera.transform_homogeneous(cam, world)
 
 
+def on_edges_arrays():
+    """The soft scene whose pixel centres lie on triangle edges, as numpy
+    arrays (the soft renderer's arguments, CCW): the sphere of radius 1 at
+    resolution 9, at batch 2 (the second image scaled by 0.8 and shifted by
+    0.1), seen from (0.3, 0.5, 4) toward the origin at 45x31, where column
+    22's pixel centres (x = 0) lie on the edges through the poles; seeded
+    diffuse colours, three lights and their scalar intensities."""
+    from ..models import shapes
+
+    v, t, _ = shapes.sphere(1.0, 9)
+    v = v.numpy()
+    rng = np.random.RandomState(0)
+    vertices = np.stack([v, v * np.float32(0.8) + np.float32(0.1)])
+    lights = rng.uniform(-3.0, 3.0, (2, 3, 3)).astype(np.float32)
+    lights[..., 2] = np.abs(lights[..., 2]) + 2.0
+    return dict(
+        vertices=vertices, triangles=t.numpy(),
+        diffuse=rng.uniform(0.2, 1.0, vertices.shape).astype(np.float32),
+        eye=np.float32([[0.3, 0.5, 4.0]] * 2),
+        center=np.zeros((2, 3), np.float32),
+        up=np.float32([[0.0, 1.0, 0.0]] * 2), lights=lights,
+        intensities=rng.uniform(0.5, 1.5, (2, 3)).astype(np.float32))
+
+
 def soft_scene(name, device):
     """A SoftScene by name: 'two_triangle' (tests/test_soft_pallas.py:20-41,
     16x16), 'cube' (64x48), 'random<L>' (the JAX suite's multi-tile scene
     with L lights, 48x40: L = 1 and 3 as there, 0 and 65 at the kernels'
     edges), 'empty_image' (random3 with its second image moved out of the
-    frame), 'quad' (two triangles filling a 256x256 frame at four depths)
-    or 'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
+    frame), 'quad' (two triangles filling a 256x256 frame at four depths),
+    'on_edges' (`on_edges_arrays`, at its own sigma, gamma and blur) or
+    'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
     per-pass cap of 49,152, at 64x64). Inputs come from seeded numpy
     generators."""
     from ..models import shapes
@@ -352,6 +382,20 @@ def soft_scene(name, device):
         # d/dgamma sums f32 rounding (K7's rgb and the plain version's
         # differ there); gamma 1 keeps it a real gradient.
         gamma = 1.0
+    elif name == "on_edges":
+        from ..ops import mesh
+
+        arrays = on_edges_arrays()
+        world, tris = torch.tensor(arrays["vertices"], **f32), torch.tensor(
+            arrays["triangles"], device=device)
+        normals = mesh.compute_vertex_normals(world, tris)
+        colors = torch.tensor(arrays["diffuse"], **f32)
+        lights = torch.tensor(np.concatenate([
+            arrays["lights"], arrays["intensities"][..., None]], -1), **f32)
+        width, height = ON_EDGES_SIZE
+        clip = clip_from_eye(world, torch.tensor(arrays["eye"], **f32),
+                             width, height)
+        sigma, gamma, blur = ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR
     elif name == "sphere":
         v, tris, _ = shapes.sphere(1.0, resolution=157)
         world = v[None].to(device)

@@ -41,6 +41,12 @@ f32 cancellation noise (per-pixel terms W (shade - rgb) z / gamma^2 of ~4e2
 that cancel). The soft scenes and gates are `utils/test_utils`'s, shared
 with chip_smoke.py.
 
+The training step of `parallel.make_train_step` captures its gradient
+and update into a CUDA graph on the card: the captured hard and
+silhouette steps agree with eager steps within the training step's 1e-4
+(the backward kernels' atomics), a new batch is copied into the captured
+inputs, and a step that cannot be captured raises.
+
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
 variants are held at their modules' tolerances (`mxu_edge.TC_RTOL`,
@@ -53,6 +59,7 @@ import pytest
 import torch
 
 from pytorch_mesh_renderer_tpu_torch import config as config_lib
+from pytorch_mesh_renderer_tpu_torch import parallel
 from pytorch_mesh_renderer_tpu_torch.microbench import common
 from pytorch_mesh_renderer_tpu_torch.microbench import mxu_edge as me
 from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
@@ -64,7 +71,8 @@ from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-from pytorch_mesh_renderer_tpu_torch.utils import hard_work, scenes, test_utils
+from pytorch_mesh_renderer_tpu_torch.utils import (capture, hard_work, scenes,
+                                                   test_utils)
 
 pytestmark = pytest.mark.cuda
 
@@ -624,15 +632,16 @@ def test_soft_row_strips_and_empty_mesh(dev):
 @pytest.mark.parametrize("scene", test_utils.SOFT_EDGE_SCENES)
 def test_soft_kernels_match_plain_versions_at_k8_edges(dev, scene):
     """K7, K5, K8 and K6 against their plain versions at 65 and at 0
-    lights, on a quad of two triangles filling a 256x256 frame, and on a
-    batch whose second image holds no valid pair: that image is background
+    lights, on a quad of two triangles filling a 256x256 frame, on a
+    sphere whose edges run through pixel centres, and on a batch whose
+    second image holds no valid pair: that image is background
     and its table gradient exactly 0. K7 and K6 run at each split of a
     pixel block tried, each held to the gates; K7 gives the same outputs
     at every split, and its alpha equals K5's bit for bit."""
     soft_scene = test_utils.soft_scene(scene, dev)
     n_lights = {"random65": 65, "random0": 0}
-    assert soft_scene.lights.shape[1] == n_lights.get(scene, 3 if scene ==
-                                                      "empty_image" else 2)
+    assert soft_scene.lights.shape[1] == n_lights.get(
+        scene, 3 if scene in ("empty_image", "on_edges") else 2)
     sil_splits = test_utils.soft_splits("soft_sil_bwd")
     fwd_splits = test_utils.soft_splits("soft_fwd")
     before = _soft_launches()
@@ -874,3 +883,145 @@ def test_device_profile_falls_back_to_cuda_events(dev):
     assert by_name == {common.EVENTS_ONLY: events} and count != count
     # The events also count the gaps between back-to-back kernels.
     assert 0.9 * total <= events <= 1.5 * total + 0.01
+
+
+def _cube_fit(dev, silhouette):
+    """(loss_fn, start vertices, batch) of a 32x32 cube fit to a target
+    render of the cube moved by (0.05, -0.04, 0.03)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    v, t, n = (a.to(dev) for a in shapes.cube(2.0))
+    eye, center, up = (torch.tensor([[2.0, 3.0, 6.0]], **f32),
+                       torch.zeros(1, 3, **f32),
+                       torch.tensor([[0.0, 1.0, 0.0]], **f32))
+
+    def render(vertices):
+        if silhouette:
+            return soft_mesh_renderer.render_silhouette(
+                vertices, t, eye, center, up, 32, 32, sigma_val=1e-4)
+        return mesh_renderer.render(
+            vertices, t.flip(1).contiguous(), n[None],
+            torch.ones_like(vertices), eye, center, up, eye[:, None],
+            torch.ones(1, 1, 3, **f32), 32, 32)
+
+    def loss_fn(params, batch):
+        return torch.mean((render(params[0]) - batch["target"]) ** 2)
+
+    with torch.no_grad():
+        target = render(v[None] + torch.tensor([0.05, -0.04, 0.03], **f32))
+    return loss_fn, v[None], {"target": target}
+
+
+@pytest.mark.parametrize("silhouette", [False, True])
+def test_captured_train_step_and_loop_match_eager_steps(dev, silhouette):
+    loss_fn, start, batch = _cube_fit(dev, silhouette)
+
+    def fresh():
+        param = start.clone().requires_grad_(True)
+        return param, torch.optim.Adam([param], lr=1e-2, capturable=True)
+
+    param, optimizer = fresh()
+    eager = []
+    for _ in range(4):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn([param], batch)
+        loss.backward()
+        optimizer.step()
+        eager.append(loss.detach())
+    eager = torch.stack(eager)
+    param_step, optimizer = fresh()
+    step = parallel.make_train_step(loss_fn, optimizer)
+    stepped = torch.stack([step(batch) for _ in range(4)])
+    assert step.graph is not None
+    param_loop, optimizer = fresh()
+    looped = parallel.make_train_loop(loss_fn, optimizer, 4)(batch)
+    for losses, p in ((stepped, param_step), (looped, param_loop)):
+        torch.testing.assert_close(losses, eager, rtol=1e-4, atol=0)
+        change = float((param - start).abs().max())
+        assert change > 0
+        assert float((p - param).abs().max()) <= 1e-4 * change
+    # Another batch of the same shapes is copied into the captured inputs;
+    # a constant in place of a tensor is refused.
+    other = {"target": torch.zeros_like(batch["target"])}
+    with torch.no_grad():
+        want = float(loss_fn([param_step], other))
+    assert float(step(other)) == pytest.approx(want, rel=1e-4)
+    with pytest.raises(ValueError, match="differs"):
+        step({"target": 0.0})
+
+
+def test_a_step_that_cannot_be_captured_raises(dev):
+    param = torch.zeros(3, device=dev, requires_grad=True)
+
+    def syncs(params, batch):
+        if float(params[0].sum()) > 1e9:  # a host sync under capture
+            pass
+        return (params[0] ** 2).sum()
+
+    step = parallel.make_train_step(
+        syncs, torch.optim.Adam([param], lr=0.1, capturable=True))
+    with pytest.raises(RuntimeError):
+        step(None)
+    step = parallel.make_train_step(
+        lambda params, batch: (params[0] ** 2).sum(),
+        torch.optim.Adam([param], lr=0.1))
+    with pytest.raises(ValueError, match="capturable"):
+        step(None)
+
+
+def test_a_replay_keeps_its_constants_after_the_cache_lets_them_go(dev):
+    """A captured step reads the tensor that `capture.constant` made for an
+    array; the step holds it, so replays stay right after 300 other
+    constants pushed it out of the cache and new tensors took the freed
+    memory."""
+    offset = np.array([0.5, -0.25, 2.0])
+    param = torch.zeros(3, device=dev, requires_grad=True)
+
+    def loss_fn(params, batch):
+        return ((params[0] - capture.constant(offset, dev)) ** 2).sum()
+
+    step = parallel.make_train_step(loss_fn,
+                                    torch.optim.SGD([param], lr=0.1))
+    step(None)  # warm-up (one SGD step) and capture
+    assert step.graph is not None and len(step.constants) == 1
+    for i in range(300):
+        capture.constant(np.full(3, 1e3 + i), dev)
+    junk = [torch.full((3,), 7e6, device=dev) for _ in range(64)]
+    # Each step scales params - offset by 1 - 2 x 0.1.
+    want = [0.8 ** (2 * k) * float((offset ** 2).sum()) for k in (1, 2, 3)]
+    got = [float(step(None)) for _ in range(3)]
+    assert got == pytest.approx(want, rel=1e-5)
+    del junk
+
+
+def test_a_schedule_needs_a_tensor_learning_rate(dev):
+    """The capture fixes a float lr: a step after a scheduler changed it
+    raises, naming the key. A tensor lr, which the scheduler fills in
+    place, follows the schedule in the replays as in eager steps."""
+    target = torch.tensor([1.0, -2.0, 0.5], device=dev)
+
+    def loss_fn(params, batch):
+        return ((params[0] - batch) ** 2).sum()
+
+    def build(lr):
+        param = torch.zeros(3, device=dev, requires_grad=True)
+        optimizer = torch.optim.Adam([param], lr=lr, capturable=True)
+        schedule = torch.optim.lr_scheduler.StepLR(optimizer, 1, gamma=0.5)
+        return param, parallel.make_train_step(loss_fn, optimizer), schedule
+
+    _, step, schedule = build(0.1)
+    step(target)
+    step(target)  # a replay at the captured lr
+    schedule.step()
+    with pytest.raises(ValueError, match="'lr' changed"):
+        step(target)
+    runs = []
+    for captured in (False, True):
+        param, step, schedule = build(torch.tensor(0.1, device=dev))
+        run_losses = []
+        for _ in range(4):
+            run_losses.append(step(target) if captured
+                              else step.run_eager(target))
+            schedule.step()
+        assert captured == (step.graph is not None)
+        runs.append((torch.stack(run_losses), param.detach()))
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-6, atol=0)

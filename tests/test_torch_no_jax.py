@@ -4,7 +4,8 @@ The machine with the card has no JAX, so the port must import neither jax
 nor the JAX package (whose __init__ imports jax). A fresh interpreter with
 `sys.modules["jax"] = None` makes any such import fail; in it, the port
 must import, render a cube on the CPU with the hard and the soft renderer,
-take their gradients, and run the microbenchmarks' plain versions.
+take their gradients, run the microbenchmarks' plain versions, a training
+loop and the bench.
 """
 
 import os
@@ -23,7 +24,8 @@ from pytorch_mesh_renderer_tpu_torch.ops import (  # noqa: F401
     losses, rasterize_barycentric_cuda, rasterize_cuda, soft_rasterize,
     soft_rasterize_cuda)
 from pytorch_mesh_renderer_tpu_torch.utils import (  # noqa: F401
-    convert, kernels, scenes, test_utils)
+    capture, convert, cost, kernels, profiling, scenes, test_utils)
+from pytorch_mesh_renderer_tpu_torch import bench, parallel
 from pytorch_mesh_renderer_tpu_torch.microbench import (
     mxu_edge, mxu_full, patch_scatter)
 
@@ -64,6 +66,13 @@ teapot = scenes.build_scene(1, "cpu")
 rows, bbox = patch_scatter.pack(scenes.clip_vertices(teapot, 64),
                                 teapot["triangles"])
 assert patch_scatter.plan(rows, bbox, 64, (16, 8), 32, 4)[0].shape[1] > 0
+# A training loop and the bench's pose mode on the CPU.
+p = torch.zeros(3, requires_grad=True)
+loop = parallel.make_train_loop(lambda params, b: ((params[0] - b) ** 2).sum(),
+                                torch.optim.Adam([p], lr=0.1), 2)
+assert loop(torch.ones(3)).shape == (2,) and float(p[0]) > 0
+assert bench.main(["--pose", "--steps", "2", "--size", "16",
+                   "--device", "cpu"])[0]["value"] > 0
 leaked = sorted(m for m in sys.modules
                 if m == "pytorch_mesh_renderer_tpu"
                 or m.startswith("pytorch_mesh_renderer_tpu."))
