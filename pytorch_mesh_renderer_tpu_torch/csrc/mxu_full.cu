@@ -19,23 +19,28 @@
 // pairs inside a triangle, against 0.26 MB (prod) or 0.66 MB (tc) of
 // input.
 //
-// What the design does about it. As in mxu_edge.cu, 2,048 pixels fill 8
-// SMs, so both variants split the visits over `splits` blocks per 16x16
-// pixel block (grid 8 x 1 x splits); each block writes its partial winner
-// per pixel, and one shared second pass picks the winner over the splits
-// (smallest z, ties to the larger id: the merge is order-free, so the
-// result is the single pass's bit for bit). The variants differ in how
-// the five values of a pair are made:
-//   * prod: `rasterize_pixel` of rasterize_common.cuh unchanged (one CTA
-//     per block, staged rows and a per-block cull: the per-block core that
-//     K1 and K3 ran before they took the cluster body of
-//     rasterize_cluster_fwd.cuh), the
-//     split's rows passed as its batch image blockIdx.z; the epilogue makes
-//     its ids global and maps an empty pixel to z = 2;
+// What the design does about it. 2,048 pixels are 8 pixel blocks of
+// 16x16, so each variant splits the work further:
+//   * prod: the cluster body of K1 and K3 (rasterize_cluster_fwd.cuh's
+//     `cluster_winners`, the production core): a cluster of `split` CTAs
+//     per group of pixel blocks splits the rows (row t to CTA t mod
+//     split), culls them per group and block, keeps partial carries of z,
+//     id and three raw edge values and merges them through distributed
+//     shared memory by `wins`; the group and split come from K3's rule
+//     (`choose_launch`). A cluster split alone fills at most 8 x 8 CTAs,
+//     so the visits are split further over `splits` batch images of the
+//     body (microbench/mxu_full.py `prod_splits`: just enough to give
+//     every SM a CTA), whose winners one second pass merges by the same
+//     order-free rule (`mxu_full_merge_kernel`); with one such split the
+//     body's epilogue writes the outputs and no second pass runs. The
+//     epilogue makes the ids global and maps an empty pixel to z = 2 and
+//     id = -1;
 //   * tc: 3xTF32 `mma.sync` m16n8k8 products of the edge-major table
 //     (rows f * C + triangle, K 3 -> 8 zero-padded) on compacted groups
-//     of 8 triangles. Per CTA (a 16x16 pixel block and its split of the
-//     visits), in stages of kStageTris triangles:
+//     of 8 triangles, the visits split over `splits` CTAs per 16x16 pixel
+//     block (grid 8 x 1 x splits) whose partial winners the same second
+//     pass merges. Per CTA (a pixel block and its split of the visits), in
+//     stages of kStageTris triangles:
 //       1. Stage: the threads copy the stage's 5 function rows of every
 //          triangle (their first 16 bytes: the three coefficients and a
 //          pad) into shared memory with `cp.async`, and each thread splits
@@ -72,7 +77,7 @@
 //     groups of 8 run 15.6% (`tc_cull_counts`).
 
 #include "mma_common.cuh"
-#include "rasterize_common.cuh"
+#include "rasterize_cluster_fwd.cuh"
 
 #include <cuda_runtime.h>
 
@@ -109,22 +114,23 @@ __device__ __forceinline__ void store_partial(
   part_w[w + 2 * kFullPix] = c.w2;
 }
 
+// Batch image b of the body is split b's rows; its local ids become
+// global ones.
+template <int kGroup>
 __global__ void __launch_bounds__(kThreads) mxu_full_prod_kernel(
     const float4* __restrict__ rows,  // [visits * C, 16]
     float* __restrict__ part_z, int* __restrict__ part_id,
     float* __restrict__ part_w,  // [splits, 2048], [splits, 3, 2048]
     int rows_per_split, float scale) {
-  // Split blockIdx.z's rows are rasterize_pixel's batch image blockIdx.z.
-  const Winner best = rasterize_pixel(rows, rows_per_split, kFullTileW,
-                                      kFullTileH, 0, scale, scale);
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int split = blockIdx.z;
-  const bool covered = best.id >= 0;
-  const Carry c{covered ? best.z : kEmptyZ,
-                covered ? split * rows_per_split + best.id : -1, best.we0,
-                best.we1, best.we2};
-  store_partial(c, split, y * kFullTileW + x, part_z, part_id, part_w);
+  cluster_winners<kGroup>(
+      rows, rows_per_split, kFullTileW, kFullTileH, 0, scale, scale,
+      [&](int b, int x, int y, const Winner& w) {
+        const bool covered = w.id >= 0;
+        const Carry c{covered ? w.z : kEmptyZ,
+                      covered ? b * rows_per_split + w.id : -1, w.we0, w.we1,
+                      w.we2};
+        store_partial(c, b, y * kFullTileW + x, part_z, part_id, part_w);
+      });
 }
 
 // Triangles a tc CTA stages in shared memory at once, and their five
@@ -134,22 +140,6 @@ constexpr int kFuncs = 5;
 // The tc cull keeps a triangle for a warp's region unless one edge is below
 // -kCullMargin x (|a| max|x| + |b| max|y| + |c|) at all four corners.
 constexpr float kCullMargin = 1e-5f;
-
-// Asynchronous 16-byte copy from device to shared memory (cp.async, which
-// bypasses the registers); cp_async_wait makes this thread's copies
-// complete and visible to it.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned address =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(address),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // The tc kernel's pixel scale, the scripts' 2/512. Pixel centre i is then
 // (2i + 1 - 512) / 512: an odd integer of at most 9 bits over a power of
@@ -239,7 +229,8 @@ __global__ void __launch_bounds__(kThreads) mxu_full_tc_kernel(
       __syncthreads();  // the previous stage's readers are done
       stage(s0, n);
     }
-    cp_async_wait();
+    cp_async_commit();
+    cp_async_wait<0>();
     // Split what this thread copied: its copies are complete and visible
     // to it after cp_async_wait.
     for (int i = threadIdx.x; i < kFuncs * n; i += kThreads) {
@@ -388,25 +379,58 @@ int launch_merge(const float* part_z, const int* part_id,
 // cudaGetLastError() (0 on success). `table` is the [visits * C, 16]
 // packed rows (prod) or the [visits * 5C, 8] contraction rows (tc, C a
 // multiple of 8); partials are [splits, 2048] z and id and
-// [splits, 3, 2048] w; outputs [2048] z and id and [3, 2048] w. Device
-// pointers to contiguous tensors; the caller checks shapes, types and
-// alignment and that `splits` divides `visits`.
+// [splits, 3, 2048] w; outputs [2048] z and id and [3, 2048] w. prod with
+// one split writes the outputs as its partials (the caller passes the
+// same pointers) and runs no merge. prod's `group` (1 or 2 pixel blocks
+// per side) and `split` (CTAs per cluster) are both 0 for K3's rule;
+// other values serve only to measure that choice. Device pointers to
+// contiguous tensors; the caller checks shapes, types and alignment and
+// that `splits` divides `visits`.
 extern "C" int mxu_full_prod(const void* table, void* part_z, void* part_id,
                              void* part_w, void* z, void* id, void* w,
-                             int visits, int chunk, int splits, float scale,
-                             void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid(kFullTileW / kBlockX, kFullTileH / kBlockY, splits);
-  mxu_full_prod_kernel<<<grid, block, 0, s>>>(
-      static_cast<const float4*>(table), static_cast<float*>(part_z),
-      static_cast<int*>(part_id), static_cast<float*>(part_w),
-      visits / splits * chunk, scale);
-  return launch_merge(static_cast<float*>(part_z),
-                      static_cast<int*>(part_id),
-                      static_cast<float*>(part_w), static_cast<float*>(z),
+                             int visits, int chunk, int splits, int group,
+                             int split, float scale, void* stream) {
+  const int rows_per_split = visits / splits * chunk;
+  if (group == 0 && split == 0) {
+    const int error =
+        choose_launch(mxu_full_prod_kernel<1>, splits, rows_per_split,
+                      kFullTileW, kFullTileH, &group, &split);
+    if (error != 0) return error;
+  }
+  const auto rows = static_cast<const float4*>(table);
+  const auto pz = static_cast<float*>(part_z);
+  const auto pid = static_cast<int*>(part_id);
+  const auto pw = static_cast<float*>(part_w);
+  int error = static_cast<int>(cudaErrorInvalidConfiguration);
+  if (group == 1) {
+    error = launch_group<1>(mxu_full_prod_kernel<1>, splits, kFullTileW,
+                            kFullTileH, split, stream, rows, pz, pid, pw,
+                            rows_per_split, scale);
+  } else if (group == 2) {
+    error = launch_group<2>(mxu_full_prod_kernel<2>, splits, kFullTileW,
+                            kFullTileH, split, stream, rows, pz, pid, pw,
+                            rows_per_split, scale);
+  }
+  if (error != 0 || splits == 1) return error;
+  return launch_merge(pz, pid, pw, static_cast<float*>(z),
                       static_cast<int*>(id), static_cast<float*>(w), splits,
-                      s);
+                      static_cast<cudaStream_t>(stream));
+}
+
+// prod's group and split by K3's rule at `splits` visit splits (shape[0],
+// shape[1]) and the card's SMs and resident CTA slots of its group-1
+// kernel (shape[2], shape[3]); returns the card query's CUDA error.
+extern "C" int mxu_full_prod_shape(int visits, int chunk, int splits,
+                                   int* shape) {
+  const int error =
+      choose_launch(mxu_full_prod_kernel<1>, splits, visits / splits * chunk,
+                    kFullTileW, kFullTileH, &shape[0], &shape[1]);
+  if (error != 0) return error;
+  const Card* card = nullptr;
+  current_card(mxu_full_prod_kernel<1>, &card);
+  shape[2] = card->sms;
+  shape[3] = card->slots;
+  return 0;
 }
 
 extern "C" int mxu_full_tc(const void* table, void* part_z, void* part_id,

@@ -24,7 +24,7 @@
 // (broadcast from L1), and the four output planes are written with
 // consecutive lanes at consecutive addresses. The per-lane arithmetic is
 // rasterize_common.cuh's (pixel_ndc and the edge and depth expressions of
-// rasterize_pixel, in the same order), so with --fmad=false the kernel
+// consider_row, in the same order), so with --fmad=false the kernel
 // equals its plain version bit for bit.
 
 #include "rasterize_common.cuh"

@@ -22,8 +22,6 @@
 // CTAs that split its rows from its pixel blocks against the card's
 // resident CTA slots (PERF.md has the times it was chosen from).
 
-#include <mutex>
-
 #include "rasterize_cluster_fwd.cuh"
 
 namespace {
@@ -41,82 +39,6 @@ __global__ void __launch_bounds__(kThreads) rasterize_bary_fwd_kernel(
                                    row_offset, scale_x, scale_y);
 }
 
-// A card's SMs and resident CTA slots for the group-1 body (SMs x CTAs
-// per SM), queried once per process and device; `error` is the query's
-// CUDA error.
-struct Card {
-  int sms = 0;
-  int slots = 0;
-  cudaError_t error = cudaSuccess;
-};
-
-constexpr int kMaxDevices = 64;
-
-// The current device's Card, or the error of finding the device.
-cudaError_t current_card(const Card** out) {
-  static Card cards[kMaxDevices];
-  static std::once_flag queried[kMaxDevices];
-  int device = 0;
-  const cudaError_t error = cudaGetDevice(&device);
-  if (error != cudaSuccess) return error;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  Card& c = cards[device];
-  std::call_once(queried[device], [&c, device] {
-    int per_sm = 0;
-    c.error = cudaDeviceGetAttribute(
-        &c.sms, cudaDevAttrMultiProcessorCount, device);
-    if (c.error == cudaSuccess) {
-      c.error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rasterize_bary_fwd_kernel<1>, kThreads, 0);
-    }
-    c.slots = c.sms * per_sm;
-  });
-  *out = &c;
-  return c.error;
-}
-
-// Rows a launch of single-block clusters may stream per SM (pixel blocks
-// x triangles / SMs) before groups of 2x2 blocks, which read each row
-// once per group, pay for their four pixels a thread.
-constexpr long long kGroupOneRowsPerSm = 32768;
-
-// The launch's group and split for `batch` images of width x height and
-// `num_tris` rows. The group: 1 while the launch's row stream stays under
-// kGroupOneRowsPerSm per SM, else 2. The split: the most CTAs (8, 4 or 2)
-// per cluster whose launch fits in four waves of the card's resident CTA
-// slots, else 2. A batch too deep for the grid at that split takes a
-// smaller one. Chosen from the device times of every group and split on
-// the teapot (2,464 rows) and sphere72 (10,368) at one 256x256 / 512x512
-// image and four on the H100 (PERF.md); returns the card query's CUDA
-// error.
-int choose_launch(int batch, int num_tris, int width, int height,
-                  int* group, int* split) {
-  const Card* card = nullptr;
-  const cudaError_t error = current_card(&card);
-  if (error != cudaSuccess) return static_cast<int>(error);
-  const Card& c = *card;
-  const long long blocks = static_cast<long long>(batch) *
-                           ((width + kBlockX - 1) / kBlockX) *
-                           ((height + kBlockY - 1) / kBlockY);
-  *group = blocks * num_tris <= kGroupOneRowsPerSm * c.sms ? 1 : 2;
-  const long long groups = static_cast<long long>(batch) *
-                           ((width + kBlockX * *group - 1) /
-                            (kBlockX * *group)) *
-                           ((height + kBlockY * *group - 1) /
-                            (kBlockY * *group));
-  *split = 2;
-  for (int s = kMaxSplit; s > 2; s /= 2) {
-    if (groups * s <= 4LL * c.slots) {
-      *split = s;
-      break;
-    }
-  }
-  while (*split > 1 && static_cast<long long>(batch) * *split > 65535) {
-    *split /= 2;
-  }
-  return 0;
-}
-
 }  // namespace
 
 // Launches the kernel on `stream` and returns the launch's CUDA error (0 on
@@ -132,7 +54,8 @@ extern "C" int rasterize_bary_fwd(const void* tri_rows, void* ids, void* bc,
                                   int split, void* stream) {
   if (group == 0 && split == 0) {
     const int error =
-        choose_launch(batch, num_tris, width, height, &group, &split);
+        choose_launch(rasterize_bary_fwd_kernel<1>, batch, num_tris, width,
+                      height, &group, &split);
     if (error != 0) return error;
   }
   const auto rows = static_cast<const float4*>(tri_rows);

@@ -1,10 +1,13 @@
 // The cluster body of the forward hard rasterizers K1
 // (rasterize_fused_fwd.cu, with attribute interpolation) and K3
-// (rasterize_bary_fwd.cu, ids, barycentrics and z only): one body,
-// templated on the group of pixel blocks a cluster covers and on the
-// attributes, so that K3's ids, bc and z equal K1's by construction. The
-// per-pixel test, the per-block edge cull and the order of winners are
-// rasterize_common.cuh's.
+// (rasterize_bary_fwd.cu, ids, barycentrics and z only), and of S2's
+// production core (mxu_full.cu `prod`): one carry stage
+// (`cluster_winners`), templated on the group of pixel blocks a cluster
+// covers and on an epilogue that writes each pixel's winner: K1's and K3's
+// (`rasterize_cluster`, templated on the attributes, so that K3's ids, bc
+// and z equal K1's by construction) and S2's. The per-pixel test, the
+// per-block edge cull and the order of winners are rasterize_common.cuh's;
+// the launch rule K3 and S2 share is `choose_launch`.
 //
 // What bounds it. Every 16x16 pixel block must see every triangle row:
 // with one CTA per block, on the 256x256 batch-4 teapot (2,464 rows) that
@@ -45,6 +48,8 @@
 
 #include <cooperative_groups.h>
 
+#include <mutex>
+
 #include "cluster.cuh"
 #include "rasterize_common.cuh"
 
@@ -83,18 +88,16 @@ __host__ __device__ constexpr int group_pixels() {
   return kGroup * kGroup * kThreads;
 }
 
-// One CTA of the cluster. `corner_attrs` and `attrs` are read and written
-// only when kWithAttrs; `z_out` may be null.
-template <int kGroup, bool kWithAttrs>
-__device__ __forceinline__ void rasterize_cluster(
-    const float4* __restrict__ tri_rows,      // [B, T, 16]
-    const float* __restrict__ corner_attrs,   // [B, T, 3, A]
-    int* __restrict__ ids,                    // [B, H, W]
-    float* __restrict__ bc,                   // [B, H, W, 3]
-    float* __restrict__ z_out,                // [B, H, W] or null
-    float* __restrict__ attrs,                // [B, H, W, A]
-    int num_tris, int num_attrs, int width, int height, int row_offset,
-    float scale_x, float scale_y) {
+// One CTA of the cluster: the carry stage. Each pixel's winner over the
+// image's rows (z, id, three raw edge values; z 1 and id -1 where none
+// wins) is handed to `epilogue(b, x, y, winner)` by the CTA that owns the
+// pixel, once for each pixel of the image; the epilogue writes the
+// caller's outputs (K1/K3: `rasterize_cluster`; S2's prod: mxu_full.cu).
+template <int kGroup, typename Epilogue>
+__device__ __forceinline__ void cluster_winners(
+    const float4* __restrict__ tri_rows,  // [B, T, 16]
+    int num_tris, int width, int height, int row_offset, float scale_x,
+    float scale_y, Epilogue epilogue) {
   namespace cg = cooperative_groups;
   constexpr int kSide = kGroup * kBlockX;  // the group's pixel side
   constexpr int kPix = kGroup * kGroup;    // pixels a thread holds
@@ -240,35 +243,54 @@ __device__ __forceinline__ void rasterize_cluster(
     const int xo = gx0 + (q % kGroup) * kBlockX + p % kBlockX;
     const int yo = gy0 + (q / kGroup) * kBlockY + (p % kThreads) / kBlockX;
     if (own >= owned || xo >= width || yo >= height) continue;
-    const Winner& w = win[j];
-    const size_t pixel =
-        (static_cast<size_t>(b) * height + yo) * static_cast<size_t>(width) +
-        xo;
-    const float sum_e = w.we0 + w.we1 + w.we2;
-    const float inv_sum = 1.0f / (sum_e != 0.0f ? sum_e : 1.0f);
-    const float b0 = w.we0 * inv_sum;
-    const float b1 = w.we1 * inv_sum;
-    const float b2 = w.we2 * inv_sum;
-    ids[pixel] = w.id > 0 ? w.id : 0;
-    bc[pixel * 3 + 0] = b0;
-    bc[pixel * 3 + 1] = b1;
-    bc[pixel * 3 + 2] = b2;
-    if (z_out != nullptr) z_out[pixel] = w.z;
-    if constexpr (kWithAttrs) {
-      float* out = attrs + pixel * num_attrs;
-      if (w.id < 0) {
-        for (int a = 0; a < num_attrs; ++a) out[a] = 0.0f;
-      } else {
-        const float* corner = corner_attrs +
-            (static_cast<size_t>(b) * num_tris + w.id) * 3 * num_attrs;
-        for (int a = 0; a < num_attrs; ++a) {
-          out[a] = corner[a] * b0 + corner[num_attrs + a] * b1 +
-                   corner[2 * num_attrs + a] * b2;
-        }
-      }
-    }
+    epilogue(b, xo, yo, win[j]);
   }
   cluster_wait();  // the other CTAs have read this one's carries
+}
+
+// K1 and K3: the cluster body whose epilogue writes ids, barycentrics, z
+// and (kWithAttrs) attributes. `corner_attrs` and `attrs` are read and
+// written only when kWithAttrs; `z_out` may be null.
+template <int kGroup, bool kWithAttrs>
+__device__ __forceinline__ void rasterize_cluster(
+    const float4* __restrict__ tri_rows,      // [B, T, 16]
+    const float* __restrict__ corner_attrs,   // [B, T, 3, A]
+    int* __restrict__ ids,                    // [B, H, W]
+    float* __restrict__ bc,                   // [B, H, W, 3]
+    float* __restrict__ z_out,                // [B, H, W] or null
+    float* __restrict__ attrs,                // [B, H, W, A]
+    int num_tris, int num_attrs, int width, int height, int row_offset,
+    float scale_x, float scale_y) {
+  cluster_winners<kGroup>(
+      tri_rows, num_tris, width, height, row_offset, scale_x, scale_y,
+      [&](int b, int xo, int yo, const Winner& w) {
+        const size_t pixel =
+            (static_cast<size_t>(b) * height + yo) * static_cast<size_t>(width) +
+            xo;
+        const float sum_e = w.we0 + w.we1 + w.we2;
+        const float inv_sum = 1.0f / (sum_e != 0.0f ? sum_e : 1.0f);
+        const float b0 = w.we0 * inv_sum;
+        const float b1 = w.we1 * inv_sum;
+        const float b2 = w.we2 * inv_sum;
+        ids[pixel] = w.id > 0 ? w.id : 0;
+        bc[pixel * 3 + 0] = b0;
+        bc[pixel * 3 + 1] = b1;
+        bc[pixel * 3 + 2] = b2;
+        if (z_out != nullptr) z_out[pixel] = w.z;
+        if constexpr (kWithAttrs) {
+          float* out = attrs + pixel * num_attrs;
+          if (w.id < 0) {
+            for (int a = 0; a < num_attrs; ++a) out[a] = 0.0f;
+          } else {
+            const float* corner = corner_attrs +
+                (static_cast<size_t>(b) * num_tris + w.id) * 3 * num_attrs;
+            for (int a = 0; a < num_attrs; ++a) {
+              out[a] = corner[a] * b0 + corner[num_attrs + a] * b1 +
+                       corner[2 * num_attrs + a] * b2;
+            }
+          }
+        }
+      });
 }
 
 // Launches `kernel` (an instance of the body at kGroup) in clusters of
@@ -289,6 +311,87 @@ int launch_group(Kernel kernel, int batch, int width, int height, int split,
       dim3((width + kSide - 1) / kSide, (height + kSide - 1) / kSide,
            batch * split),
       dim3(kBlockX, kBlockY), 0, split, stream, args...);
+}
+
+// A card's SMs and resident CTA slots for a launcher's group-1 kernel
+// (SMs x CTAs per SM), queried once per process and device; `error` is the
+// query's CUDA error.
+struct Card {
+  int sms = 0;
+  int slots = 0;
+  cudaError_t error = cudaSuccess;
+};
+
+constexpr int kMaxDevices = 64;
+
+// The current device's Card for `group_one` (the launcher's kernel at
+// group 1), or the error of finding the device. The cache is per kernel
+// type: each translation unit that calls it asks for one kernel.
+template <typename Kernel>
+cudaError_t current_card(Kernel group_one, const Card** out) {
+  static Card cards[kMaxDevices];
+  static std::once_flag queried[kMaxDevices];
+  int device = 0;
+  const cudaError_t error = cudaGetDevice(&device);
+  if (error != cudaSuccess) return error;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  Card& c = cards[device];
+  std::call_once(queried[device], [&c, device, group_one] {
+    int per_sm = 0;
+    c.error = cudaDeviceGetAttribute(
+        &c.sms, cudaDevAttrMultiProcessorCount, device);
+    if (c.error == cudaSuccess) {
+      c.error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, group_one, kThreads, 0);
+    }
+    c.slots = c.sms * per_sm;
+  });
+  *out = &c;
+  return c.error;
+}
+
+// Rows a launch of single-block clusters may stream per SM (pixel blocks
+// x triangles / SMs) before groups of 2x2 blocks, which read each row
+// once per group, pay for their four pixels a thread.
+constexpr long long kGroupOneRowsPerSm = 32768;
+
+// K3's launch rule, which S2's prod takes too: the group and split
+// for `batch` images of width x height and `num_tris` rows, launched as
+// `group_one` at group 1. The group: 1 while the launch's row stream stays
+// under kGroupOneRowsPerSm per SM, else 2. The split: the most CTAs (8, 4
+// or 2) per cluster whose launch fits in four waves of the card's resident
+// CTA slots, else 2. A batch too deep for the grid at that split takes a
+// smaller one. Chosen from the device times of every group and split on
+// the teapot (2,464 rows) and sphere72 (10,368) at one 256x256 / 512x512
+// image and four on the H100 (PERF.md); returns the card query's CUDA
+// error.
+template <typename Kernel>
+int choose_launch(Kernel group_one, int batch, int num_tris, int width,
+                  int height, int* group, int* split) {
+  const Card* card = nullptr;
+  const cudaError_t error = current_card(group_one, &card);
+  if (error != cudaSuccess) return static_cast<int>(error);
+  const Card& c = *card;
+  const long long blocks = static_cast<long long>(batch) *
+                           ((width + kBlockX - 1) / kBlockX) *
+                           ((height + kBlockY - 1) / kBlockY);
+  *group = blocks * num_tris <= kGroupOneRowsPerSm * c.sms ? 1 : 2;
+  const long long groups = static_cast<long long>(batch) *
+                           ((width + kBlockX * *group - 1) /
+                            (kBlockX * *group)) *
+                           ((height + kBlockY * *group - 1) /
+                            (kBlockY * *group));
+  *split = 2;
+  for (int s = kMaxSplit; s > 2; s /= 2) {
+    if (groups * s <= 4LL * c.slots) {
+      *split = s;
+      break;
+    }
+  }
+  while (*split > 1 && static_cast<long long>(batch) * *split > 65535) {
+    *split /= 2;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -229,6 +229,10 @@ struct SoftGeometry {
   float cb[3];  // chosen barycentrics: bc inside, the nearest edge's outside
   float t01, t12, t20;
   int pick;  // nearest edge: 0 for v0v1, 1 for v1v2, 2 for v2v0
+  // Bit e set where edge e's distance equals sq_dist: two or three bits at
+  // an exact tie, among which the backward splits sq_dist's cotangent
+  // evenly (the derivative of jnp.min and torch.amin).
+  unsigned nearest;
   float sq_dist;
   float ow[3];  // cb / w
   float inv_denom;
@@ -262,6 +266,8 @@ __device__ __forceinline__ SoftGeometry soft_geometry(const float* r,
   const bool p12 = !p01 && d12 <= d20;
   g.pick = p01 ? 0 : (p12 ? 1 : 2);
   g.sq_dist = p01 ? d01 : (p12 ? d12 : d20);
+  g.nearest = (d01 == g.sq_dist ? 1u : 0u) | (d12 == g.sq_dist ? 2u : 0u) |
+              (d20 == g.sq_dist ? 4u : 0u);
   if (!(g.inside || g.sq_dist <= sq_blur)) return g;
   const float eb0 = p01 ? 1.0f - g.t01 : (p12 ? 0.0f : g.t20);
   const float eb1 = p01 ? g.t01 : (p12 ? 1.0f - g.t12 : 0.0f);
@@ -346,8 +352,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Edge-endpoint gradients into the per-lane table-gradient row `v`
 // (cols 9-14; `_edge_gradients`, :791-832): per edge, the offset-t chain
 // `dt` (kWithT only; the silhouette backward has none) and the
-// squared-distance chain of the picked edge (the envelope theorem: t is
-// constant at the interior optimum).
+// squared-distance chain of the nearest edge, split evenly among the edges
+// of an exact tie (`g.nearest`; the envelope theorem: t is constant at the
+// interior optimum).
 template <bool kWithT>
 __device__ __forceinline__ void edge_gradients(const float* r,
                                                const SoftGeometry& g,
@@ -356,6 +363,9 @@ __device__ __forceinline__ void edge_gradients(const float* r,
   const int cols[3][5] = {{9, 10, 11, 12, 56}, {11, 12, 13, 14, 57},
                           {13, 14, 9, 10, 58}};
   const float ts[3] = {g.t01, g.t12, g.t20};
+  const int n_nearest = __popc(g.nearest);
+  const float dsq_share =
+      n_nearest > 1 ? dsq / static_cast<float>(n_nearest) : dsq;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     const float ax = r[cols[e][0]], ay = r[cols[e][1]];
@@ -374,7 +384,7 @@ __device__ __forceinline__ void edge_gradients(const float* r,
       db_x = dtg * (qx - 2.0f * t * abx) * inv_len2;
       db_y = dtg * (qy - 2.0f * t * aby) * inv_len2;
     }
-    const float dsqp = g.pick == e ? dsq : 0.0f;
+    const float dsqp = (g.nearest >> e) & 1u ? dsq_share : 0.0f;
     const float rx = ax + t * abx - px;
     const float ry = ay + t * aby - py;
     v[cols[e][0]] += da_x + dsqp * 2.0f * rx * (1.0f - t);

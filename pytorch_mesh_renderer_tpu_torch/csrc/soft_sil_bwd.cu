@@ -12,7 +12,8 @@
 // sigma take a gradient: per valid pair dsq = sgn / sigma * dA * sil * cov
 // (d alpha / d cov = prod_{j != c}(1 - cov_j), whose (1 - cov) cancels
 // against the sigmoid's derivative), the squared-distance chain of the
-// picked edge (edge_gradients without the offset-t chain) and
+// nearest edge, split evenly among the edges of an exact tie
+// (edge_gradients without the offset-t chain) and
 // dsigma = -dsq * d^2 / sigma.
 //
 // What bounds it: the busy pixel blocks' pairs, as in K8 (soft_bwd.cu).

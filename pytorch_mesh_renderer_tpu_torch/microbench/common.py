@@ -23,9 +23,9 @@ TILE_W = 128
 N_PIX = TILE_H * TILE_W
 PIXEL_SCALE = float(np.float32(2.0 / 512))
 
-# The kernels of mxu_edge and mxu_full split the visit loop over at most
-# this many blocks per pixel block and merge the partial results in a
-# second pass (a visit count with no such divisor runs in fewer splits).
+# The kernels of mxu_full split the visit loop over at most this many
+# blocks per pixel block and merge the partial results in a second pass (a
+# visit count with no such divisor runs in fewer splits).
 MAX_SPLITS = 32
 
 

@@ -19,18 +19,23 @@ additive fold, so nothing is dead code), over `visits` visits of one
     centres from the thread index (`csrc/mxu_edge.cu`, built with
     --fmad=false like every kernel here, so a*b + c stays a product and a
     sum, as in K1);
-  * `tc_bf16` (`mxu_bf16`): one bf16 `mma.sync` m16n8k16 pass, K padded
-    8 -> 16. bf16 rounds the pixel coordinates to 8 mantissa bits, so it
-    is not fit for coverage: timed as the upper bound of the lever;
-  * `tc_tf32x3` (`mxu_bf16x6`): the parity-plausible route, three TF32
-    `mma.sync` m16n8k8 products per tile (hi*hi + hi*lo + lo*hi, each
-    operand split into a TF32 hi and lo part by `cvt.rna.tf32.f32`).
+  * `tc_bf16` (`mxu_bf16`): one bf16 `mma.sync` m16n8k8 pass (K = 8, the
+    contraction's depth). bf16 rounds the pixel coordinates to 8 mantissa
+    bits, so it is not fit for coverage: timed as the upper bound of the
+    lever;
+  * `tc_tf32x3` (`mxu_bf16x6`): the parity-plausible route, the 3xTF32
+    product hi*hi + hi*lo + lo*hi of operands split into a TF32 hi and lo
+    part by `cvt.rna.tf32.f32`; the pixel centres are TF32-exact, so B's
+    lo part and the hi*lo product are zero and the kernel runs two TF32
+    `mma.sync` m16n8k8 products per tile (lo*hi, hi*hi).
 
-The three variants share one decomposition: a block of 256 threads covers
-256 pixels, and the visits are split over `common.visit_splits(visits)`
-blocks whose partial sums a second pass adds up; they differ in the
-contraction only. Each kernel sits beside its plain PyTorch version:
-`fold_fma_torch` sums in the kernel's order (bit for bit equal);
+The three variants share one decomposition (`csrc/mxu_edge.cu`): a CTA
+of WARPS warps covers GROUP_PIX pixels, each warp one of
+`edge_splits(visits)` contiguous visit ranges (`split_visits`), a
+cluster of `edge_cluster(splits)` CTAs a group's splits, whose partial
+sums it adds in split order through distributed shared memory; they
+differ in the contraction only. Each kernel sits beside its plain PyTorch
+version: `fold_fma_torch` sums in the kernel's order (bit for bit equal);
 `fold_tc_torch` rounds the operands as the kernel does (bf16, or the TF32
 hi/lo split) and accumulates in fp32, in its own order (a stated relative
 tolerance, TC_RTOL).
@@ -57,8 +62,18 @@ from . import common
 VARIANTS = ("fma", "tc_bf16", "tc_tf32x3")
 
 # Launches of each variant's kernel in this process; each wrapper adds one
-# per launch (its two passes) and nothing else touches them.
+# per launch and nothing else touches them.
 LAUNCHES = {name: 0 for name in VARIANTS}
+
+# The kernels' decomposition (csrc/mxu_edge.cu): warps per CTA, each one
+# split of the visits; pixels per CTA (fma: PIX_PER_LANE a lane; tc: TILES
+# n8 tiles a warp); at most MAX_SPLITS splits, so that a cluster of CTAs
+# holding a group's splits stays within the card's limit of 16.
+WARPS = 4
+GROUP_PIX = 64
+PIX_PER_LANE = GROUP_PIX // 32
+TILES = GROUP_PIX // 8
+MAX_SPLITS = 16 * WARPS
 
 # fp32 operations of one (triangle, pixel) pair in the fma body: the three
 # edge functions (6 products, 6 sums), num and den (6 products, 4 sums),
@@ -70,6 +85,28 @@ FMA_OPS_PER_PAIR = 27
 # differ only in how the tensor cores and torch.matmul order and round the
 # fp32 sums of ~visits * 5C terms per pixel.
 TC_RTOL = 1e-5
+
+
+def edge_splits(visits: int) -> int:
+    """The number of visit ranges the kernels split `visits` over: one a
+    warp, up to MAX_SPLITS (at 512 visits, 64 splits of 8 visits in 512
+    CTAs of 4 warps: 3.9 CTAs on each of the H100's 132 SMs)."""
+    if visits < 1:
+        raise ValueError(f"visits must be >= 1, got {visits}")
+    return min(visits, MAX_SPLITS)
+
+
+def edge_cluster(splits: int) -> int:
+    """CTAs in the cluster that holds one pixel group's splits."""
+    return -(-splits // WARPS)
+
+
+def split_visits(visits: int):
+    """[(first, end)] of each split's visits, in split order: split s of S
+    covers visits [s V // S, (s + 1) V // S)."""
+    splits = edge_splits(visits)
+    return [(s * visits // splits, (s + 1) * visits // splits)
+            for s in range(splits)]
 
 
 def make_inputs(visits, chunk, device):
@@ -104,8 +141,9 @@ def fold_fma_torch(data, visits, chunk):
     """Plain version of the fma kernel: [16, 128] f32, summed in its order.
 
     Per pixel and visit, the C pairs' values e0 + e1 + e2 + num + den are
-    summed in triangle order; each split adds its visits' sums to 0 in
-    visit order, and the splits' sums are added to 0 in split order.
+    summed in triangle order; each split (`split_visits`) adds its visits'
+    sums to 0 in visit order, and the splits' sums are added to 0 in split
+    order.
     """
     px, py = common.tile_pixel_coords(data.device)
     e0, e1, e2, num, den = common.affine_values(  # each [V, C, N]
@@ -114,13 +152,15 @@ def fold_fma_torch(data, visits, chunk):
     visit_sum = terms[:, 0]
     for c in range(1, chunk):
         visit_sum = visit_sum + terms[:, c]
-    splits = common.visit_splits(visits)
-    per_split = visit_sum.view(splits, visits // splits, common.N_PIX)
-    partial = torch.zeros(splits, common.N_PIX, device=data.device)
-    for i in range(visits // splits):
-        partial = partial + per_split[:, i]
+    bounds = split_visits(visits)
+    first = torch.tensor([f for f, _ in bounds], device=data.device)
+    size = torch.tensor([e - f for f, e in bounds], device=data.device)
+    partial = torch.zeros(len(bounds), common.N_PIX, device=data.device)
+    for i in range(int(size.max())):  # visit i of every split at once
+        rows = visit_sum[(first + i).clamp(max=visits - 1)]
+        partial = torch.where((i < size)[:, None], partial + rows, partial)
     out = torch.zeros(common.N_PIX, device=data.device)
-    for j in range(splits):
+    for j in range(len(bounds)):
         out = out + partial[j]
     return out.view(common.TILE_H, common.TILE_W)
 
@@ -147,11 +187,9 @@ def launch_fma(data, visits, chunk):
     """The fma kernel (csrc/mxu_edge.cu) on [visits*C, 16] CUDA rows;
     fold_fma_torch's contract."""
     common.check_operands(data.device, [("data", data, (visits * chunk, 16))])
-    splits = common.visit_splits(visits)
-    partial = torch.empty(splits, common.N_PIX, device=data.device)
     out = torch.empty(common.TILE_H, common.TILE_W, device=data.device)
     common.launch("mxu_edge_fma", data.device, data.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), visits, chunk, splits,
+                  out.data_ptr(), visits, chunk, edge_splits(visits),
                   common.PIXEL_SCALE)
     LAUNCHES["fma"] += 1
     return out
@@ -159,18 +197,18 @@ def launch_fma(data, visits, chunk):
 
 def launch_tc(coeff, pix, visits, chunk, variant):
     """A tensor-core kernel (csrc/mxu_edge.cu) on CUDA coeff
-    [visits*5C, 8] and pix [8, 2048]; fold_tc_torch's contract."""
+    [visits*5C, 8] and pix [8, 2048] whose values are TF32-exact
+    (make_inputs'; 3xTF32 drops the product with B's lo part, zero then);
+    fold_tc_torch's contract."""
     if variant not in ("tc_bf16", "tc_tf32x3"):
         raise ValueError(f"not a tensor-core variant: {variant!r}")
     common.check_operands(coeff.device, [
         ("coeff", coeff, (visits * 5 * chunk, 8)),
         ("pix", pix, (8, common.N_PIX))])
-    splits = common.visit_splits(visits)
-    partial = torch.empty(splits, common.N_PIX, device=coeff.device)
     out = torch.empty(1, common.N_PIX, device=coeff.device)
     common.launch("mxu_edge_tc", coeff.device, coeff.data_ptr(),
-                  pix.data_ptr(), partial.data_ptr(), out.data_ptr(), visits,
-                  chunk, splits, int(variant == "tc_bf16"))
+                  pix.data_ptr(), out.data_ptr(), visits, chunk,
+                  edge_splits(visits), int(variant == "tc_bf16"))
     LAUNCHES[variant] += 1
     return out
 

@@ -9,9 +9,11 @@ synthetic triangles: per pixel the smallest valid z, ties to the larger
 triangle id, the winner's raw edge values (z = 2, id = -1 and zeros where
 no triangle is valid).
 
-  * `prod` (the script's `prod`): the production core unchanged,
-    `rasterize_pixel` of csrc/rasterize_common.cuh (K1's and K3's loop, with
-    its per-block cull), on the packed rows, with positional ids;
+  * `prod` (the script's `prod`): the production core unchanged, the
+    cluster body of K1 and K3 (csrc/rasterize_cluster_fwd.cuh: a cluster of
+    CTAs splits the rows, culls them per group of pixel blocks and per
+    block, and merges its partial winners), at K3's launch rule, on the
+    packed rows, with positional ids;
   * `tc` (`mxu`): the 3xTF32 `mma.sync` contraction
     [5C, 3 -> 8] @ [8, 2048], then the same masking and winner on the
     products (mxu_full_microbench.py:131-152). Like the JAX kernel it
@@ -24,13 +26,14 @@ no triangle is valid).
     every pair the plain version counts inside) and runs the products only
     on the survivors, compacted into groups of 8.
 
-Both kernels (csrc/mxu_full.cu) split the visits over the same blocks and
-merge the partial winners in one shared second pass; they differ in how a
-pair's five values are computed. `prod` is the per-block core that K1 and
-K3 ran before their cluster body (csrc/rasterize_cluster_fwd.cuh), so
-`speedup` compares tc with that older core. Each sits beside a plain
-PyTorch version:
-`zbuffer_prod_torch` computes what `rasterize_pixel` computes (bit for bit);
+Both kernels (csrc/mxu_full.cu) split the visits over batches of CTAs
+and merge the partial winners in one shared second pass, order-free
+(tc over `common.visit_splits(visits)`; prod over `prod_splits`, just
+enough to give every SM a CTA, and with one such split it runs no second
+pass); they differ in how a pair's five values are computed. Each sits
+beside a plain PyTorch version:
+`zbuffer_prod_torch` computes what the cluster body computes (bit for
+bit: its merge is a total order);
 `zbuffer_tc_torch` rounds the operands to TF32 hi and lo parts as the
 kernel does and sums the three exact products in fp32, in its own order, so
 a winner may differ where the two best depths lie within Z_TOL.
@@ -44,7 +47,9 @@ how much the contraction's rounding moves knife-edge winners), each
 variant's time per call (`*_us`: the device time of its kernels by
 torch.profiler on a card, the host clock on the CPU; `*_call_us`:
 back-to-back calls by CUDA events) and `speedup` = prod / tc; and, beyond
-the script's keys, `tc_kept_fraction` and `tc_group_fraction`, the share
+the script's keys, `prod_shape` (prod's launch on a card: visit splits,
+group, cluster split, CTAs and CTAs per SM; `prod_shape`), and
+`tc_kept_fraction` and `tc_group_fraction`, the share
 of all pairs that tc's cull keeps and that its groups of 8 run through
 the products, and `tc_busiest_groups`, the most groups one warp runs in
 one stage (`tc_cull_counts`).
@@ -53,18 +58,21 @@ one stage (`tc_cull_counts`).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
 import numpy as np
 import torch
 
 from ..ops.barycentric import pixel_is_inside
+from ..utils import kernels
 from . import common
 
 VARIANTS = ("prod", "tc")
 
 # Launches of each variant's kernel in this process; each wrapper adds one
-# per launch (its two passes) and nothing else touches them.
+# per launch (with its second pass, where it runs one) and nothing else
+# touches them.
 LAUNCHES = {name: 0 for name in VARIANTS}
 
 # fp32 operations per (triangle, pixel) pair read off the two bodies: the
@@ -88,6 +96,22 @@ Z_TOL = 1e-5
 REGION_H, REGION_W = 2, 16
 CULL_MARGIN = 1e-5
 STAGE_TRIS = 128
+
+
+# prod's CTAs per visit split at most: the tile's 8 pixel blocks, each a
+# cluster of at most 8 CTAs (K3's rule at group 1).
+PROD_CTAS_PER_SPLIT = 8 * 8
+
+
+def prod_splits(visits: int, sms: int) -> int:
+    """The visit splits prod runs over (its batch images): the fewest,
+    among the divisors of `visits` up to common.MAX_SPLITS, whose
+    PROD_CTAS_PER_SPLIT CTAs each give every one of `sms` SMs a CTA;
+    else common.visit_splits(visits)."""
+    for d in range(1, common.MAX_SPLITS + 1):
+        if visits % d == 0 and d * PROD_CTAS_PER_SPLIT >= sms:
+            return d
+    return common.visit_splits(visits)
 
 
 def make_inputs(visits, chunk, device):
@@ -153,6 +177,21 @@ def make_knife_edge_inputs(device, seed=0):
     data = np.concatenate([data, np.zeros((-len(data) % chunk, 16),
                                           np.float32)])
     visits = len(data) // chunk
+    return _with_contraction_rows(data, visits, chunk, device) + (visits,
+                                                                  chunk)
+
+
+def make_depth_tie_inputs(device, visits=64, chunk=8, period=61):
+    """(data, coeff, visits, chunk) as make_inputs' pair, for a table of
+    exact depth ties: row i copies row i mod `period` of make_inputs'
+    table (a prime period, so a triangle's copies fall in other visits,
+    visit splits and cluster CTAs), and every third base row has z 0 (its
+    pairs' z is +0.0 or -0.0). Each pixel's winner is then the last copy
+    of its best triangle: the tie to the larger id, across the kernels'
+    splits."""
+    base = make_inputs(visits, chunk, "cpu")[0].numpy()
+    base[0:period:3, 9:12] = 0.0
+    data = base[np.arange(visits * chunk) % period]
     return _with_contraction_rows(data, visits, chunk, device) + (visits,
                                                                   chunk)
 
@@ -353,25 +392,50 @@ def _outputs(device, shape):
             torch.empty((3,) + shape, **f32))
 
 
-def _launch(entry, table, table_shape, visits, chunk, shape):
-    common.check_operands(table.device, [("table", table, table_shape)])
-    splits = common.visit_splits(visits)
-    part_z, part_id, part_w = _outputs(table.device, (splits, common.N_PIX))
-    z, ids, w = _outputs(table.device, shape)
-    common.launch(entry, table.device, table.data_ptr(), part_z.data_ptr(),
-                  part_id.data_ptr(), part_w.data_ptr(), z.data_ptr(),
-                  ids.data_ptr(), w.data_ptr(), visits, chunk, splits,
-                  common.PIXEL_SCALE)
-    return z, ids, w[0], w[1], w[2]
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_prod(data, visits, chunk):
+def prod_shape(visits, chunk, device):
+    """prod's launch at `visits` on the card of `device`: {splits
+    (prod_splits), group, split (CTAs per cluster, K3's rule), ctas,
+    ctas_per_sm, sms, slots (resident CTAs of its group-1 kernel)}."""
+    splits = prod_splits(visits, _sms(device))
+    shape = (ctypes.c_int * 4)()
+    lib = kernels.load_library()
+    with torch.cuda.device(device):
+        error = lib.mxu_full_prod_shape(visits, chunk, splits,
+                                        ctypes.addressof(shape))
+    kernels.check_cuda_error(lib, error, "mxu_full_prod_shape")
+    group, split, sms, slots = shape
+    blocks = -(-common.TILE_W // (16 * group)) * -(-common.TILE_H
+                                                   // (16 * group))
+    ctas = splits * blocks * split
+    return {"splits": splits, "group": group, "split": split, "ctas": ctas,
+            "ctas_per_sm": ctas / sms, "sms": sms, "slots": slots}
+
+
+def launch_prod(data, visits, chunk, shape=None):
     """The prod kernel (csrc/mxu_full.cu) on CUDA [visits*C, 16] rows;
-    zbuffer_prod_torch's contract."""
-    out = _launch("mxu_full_prod", data, (visits * chunk, 16), visits, chunk,
-                  (common.TILE_H, common.TILE_W))
+    zbuffer_prod_torch's contract. `shape` (visit splits, group, split)
+    forces a launch, for measurement only; by default prod_splits and K3's
+    rule choose it."""
+    common.check_operands(data.device, [("data", data,
+                                         (visits * chunk, 16))])
+    splits, group, split = shape or (prod_splits(visits, _sms(data.device)),
+                                     0, 0)
+    if visits % splits:
+        raise ValueError(f"{splits} splits do not divide {visits} visits")
+    z, ids, w = out = _outputs(data.device, (common.TILE_H, common.TILE_W))
+    # One split writes the outputs as its partials.
+    part = (out if splits == 1
+            else _outputs(data.device, (splits, common.N_PIX)))
+    common.launch("mxu_full_prod", data.device, data.data_ptr(),
+                  *(t.data_ptr() for t in part), z.data_ptr(),
+                  ids.data_ptr(), w.data_ptr(), visits, chunk, splits, group,
+                  split, common.PIXEL_SCALE)
     LAUNCHES["prod"] += 1
-    return out
+    return z, ids, w[0], w[1], w[2]
 
 
 def launch_tc(coeff, visits, chunk):
@@ -381,10 +445,17 @@ def launch_tc(coeff, visits, chunk):
     if chunk % 8:
         raise ValueError(f"the tc kernel needs a chunk that is a multiple of"
                          f" 8, got {chunk}")
-    out = _launch("mxu_full_tc", coeff, (visits * 5 * chunk, 8), visits,
-                  chunk, (1, common.N_PIX))
+    common.check_operands(coeff.device, [("table", coeff,
+                                          (visits * 5 * chunk, 8))])
+    splits = common.visit_splits(visits)
+    part_z, part_id, part_w = _outputs(coeff.device, (splits, common.N_PIX))
+    z, ids, w = _outputs(coeff.device, (1, common.N_PIX))
+    common.launch("mxu_full_tc", coeff.device, coeff.data_ptr(),
+                  part_z.data_ptr(), part_id.data_ptr(), part_w.data_ptr(),
+                  z.data_ptr(), ids.data_ptr(), w.data_ptr(), visits, chunk,
+                  splits, common.PIXEL_SCALE)
     LAUNCHES["tc"] += 1
-    return out
+    return z, ids, w[0], w[1], w[2]
 
 
 def zbuffer(variant, data, coeff, visits, chunk):
@@ -418,6 +489,8 @@ def run(visits=512, chunk=8, iters=30, device="cuda"):
     for name, call in calls.items():
         results.update(common.times_us(name, call, dev, iters))
     cull = tc_cull_counts(coeff, visits, chunk)
+    if dev.type == "cuda":
+        results["prod_shape"] = prod_shape(visits, chunk, dev)
     results.update(chunk=chunk, visits=visits,
                    device=common.device_name(dev),
                    speedup=results["prod_us"] / results["tc_us"],

@@ -39,6 +39,31 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
+# choose_launch's constants (csrc/rasterize_cluster_fwd.cuh).
+GROUP_ONE_ROWS_PER_SM = 32768
+MAX_SPLIT = 8
+
+
+def launch_rule(batch, num_tris, width, height, sms, slots):
+    """(group, split) that K3's launcher (and S2's prod) picks for `batch`
+    images of width x height and `num_tris` rows on a card of `sms` SMs and
+    `slots` resident CTAs of the group-1 kernel: the plain model of
+    `choose_launch`. The group: 1 while pixel blocks x rows stay under
+    GROUP_ONE_ROWS_PER_SM per SM, else 2; the split: the most of 8 and 4
+    CTAs per cluster whose launch fits in four waves of the slots, else 2,
+    halved while batch x split exceeds the grid's 65,535."""
+    def tiles(side):
+        return -(-width // side) * -(-height // side)
+
+    group = 1 if batch * tiles(16) * num_tris <= (
+        GROUP_ONE_ROWS_PER_SM * sms) else 2
+    groups = batch * tiles(16 * group)
+    split = next((s for s in (8, 4) if groups * s <= 4 * slots), 2)
+    while split > 1 and batch * split > 65535:
+        split //= 2
+    return group, split
+
+
 def launch_bary_fwd(table, image_width, image_height, row_offset,
                     full_height, group=0, split=0):
     """Launch the barycentric-only forward kernel (K3) on packed rows.
@@ -48,8 +73,8 @@ def launch_bary_fwd(table, image_width, image_height, row_offset,
         pack_rows), CUDA, contiguous, 16-byte aligned.
       group, split: pixel blocks per side of a cluster's group (1 or 2) and
         CTAs per cluster (1, 2, 4 or 8); both 0, the default, take the
-        launcher's rule (csrc/rasterize_bary_fwd.cu `choose_launch`).
-        Other values serve only to
+        launcher's rule (csrc/rasterize_cluster_fwd.cuh `choose_launch`;
+        `launch_rule` is its plain model). Other values serve only to
         measure that choice (chip_smoke.py, utils/hard_work.py). The
         outputs depend on neither.
 

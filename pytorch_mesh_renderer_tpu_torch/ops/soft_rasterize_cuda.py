@@ -31,8 +31,10 @@ Port of K5-K8, the four kernels of the JAX package's
 The plain forward is written so that autograd reproduces the kernels'
 hand-derived chain (the module docstring of the Pallas file, :31-39):
 the running max m and the background weight are detached (m cancels); the
-t and ndl clips pass gradient only strictly inside (0, 1); the nearest edge
-is picked, not min-reduced; 1/|edge|^2 is recomputed from cols 9-14 with
+t and ndl clips pass gradient only strictly inside (0, 1); the squared
+distance is the min of the three edges' (its gradient split evenly among
+tied edges, as jnp.min's in the JAX XLA route) while the edge barycentrics
+take the first nearest edge; 1/|edge|^2 is recomputed from cols 9-14 with
 the pack's expression, so cols 56-58 take no gradient while the kernels
 fold their chain into the edge gradients; square roots of zero take a
 finite gradient. The kernels give cols 18-25 and 56-58 no gradient, and
@@ -224,9 +226,12 @@ def _chunk_quantities(blk, px, py, lights, sigma, gamma, sq_blur, shade):
     d01, t01 = _segment_sq_dist(px, py, x0, y0, x1, y1, _inv_len2(l01))
     d12, t12 = _segment_sq_dist(px, py, x1, y1, x2, y2, _inv_len2(l12))
     d20, t20 = _segment_sq_dist(px, py, x2, y2, x0, y0, _inv_len2(l20))
+    # torch.amin splits the gradient evenly among tied distances, as
+    # jnp.min does; the edge barycentrics take the first nearest edge
+    # (jnp.argmin, which carries no gradient).
+    sq_dist = torch.amin(torch.stack([d01, d12, d20]), dim=0)
     pick01 = (d01 <= d12) & (d01 <= d20)
     pick12 = ~pick01 & (d12 <= d20)
-    sq_dist = torch.where(pick01, d01, torch.where(pick12, d12, d20))
     zero = torch.zeros((), dtype=torch.float32, device=blk.device)
     eb = [torch.where(pick01, 1.0 - t01, torch.where(pick12, zero, t20)),
           torch.where(pick01, t01, torch.where(pick12, 1.0 - t12, zero)),

@@ -145,16 +145,18 @@ def load_library() -> ctypes.CDLL:
                  lib.soft_fwd_blocks_per_sm, lib.soft_sil_fwd_blocks_per_sm)
     for entry in occupancy:
         entry.argtypes = []
-    lib.mxu_edge_fma.argtypes = [ptr] * 3 + [i32] * 3 + [f32, ptr]
-    lib.mxu_edge_tc.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.mxu_full_prod.argtypes = [ptr] * 7 + [i32] * 3 + [f32, ptr]
+    lib.mxu_edge_fma.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
+    lib.mxu_edge_tc.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.mxu_full_prod.argtypes = [ptr] * 7 + [i32] * 5 + [f32, ptr]
+    lib.mxu_full_prod_shape.argtypes = [i32] * 3 + [ptr]
     lib.mxu_full_tc.argtypes = [ptr] * 7 + [i32] * 3 + [f32, ptr]
     lib.patch_eval.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
     for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
                   lib.rasterize_bary_fwd, lib.rasterize_bary_bwd,
                   lib.soft_fwd, lib.soft_bwd, lib.soft_sil_fwd,
                   lib.soft_sil_bwd, lib.mxu_edge_fma, lib.mxu_edge_tc,
-                  lib.mxu_full_prod, lib.mxu_full_tc, lib.patch_eval,
+                  lib.mxu_full_prod, lib.mxu_full_prod_shape,
+                  lib.mxu_full_tc, lib.patch_eval,
                   *occupancy):
         entry.restype = i32
     lib.cuda_error_string.argtypes = [i32]

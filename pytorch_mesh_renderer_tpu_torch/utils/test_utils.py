@@ -229,8 +229,11 @@ SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
 # block, so every CTA of a block's split walks all its row pairs), a
 # batch whose second image holds no valid pair, and a sphere whose edges
 # run through pixel centres (`on_edges_arrays`: a corner weight exactly 0,
-# where d|ow|/dow must be +1).
-SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image", "on_edges")
+# where d|ow|/dow must be +1), and the pose fit's cube at angles 0, whose
+# pixel centres lie at exactly equal distance from two edges of a triangle
+# (the backward splits the squared distance's gradient between them).
+SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image", "on_edges",
+                    "pose_tie")
 # The on_edges scene's image and soft parameters.
 ON_EDGES_SIZE = (45, 31)
 ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR = 1e-4, 1e-3, 0.05
@@ -332,7 +335,9 @@ def soft_scene(name, device):
     with L lights, 48x40: L = 1 and 3 as there, 0 and 65 at the kernels'
     edges), 'empty_image' (random3 with its second image moved out of the
     frame), 'quad' (two triangles filling a 256x256 frame at four depths),
-    'on_edges' (`on_edges_arrays`, at its own sigma, gamma and blur) or
+    'on_edges' (`on_edges_arrays`, at its own sigma, gamma and blur),
+    'pose_tie' (bench.py's pose cube at angles 0 from (0, 0, 6) at 32x32,
+    sigma 1e-4, blur 0.01: render_silhouette's camera and defaults) or
     'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
     per-pass cap of 49,152, at 64x64). Inputs come from seeded numpy
     generators."""
@@ -396,6 +401,19 @@ def soft_scene(name, device):
         clip = clip_from_eye(world, torch.tensor(arrays["eye"], **f32),
                              width, height)
         sigma, gamma, blur = ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR
+    elif name == "pose_tie":
+        from ..ops import mesh
+
+        v, tris, _ = shapes.cube(2.0)
+        world = v[None].to(device)
+        normals = mesh.compute_vertex_normals(world, tris.to(device))
+        colors = torch.tensor(np.random.RandomState(7).uniform(
+            0.2, 1.0, (1, 8, 3)), **f32)
+        lights = torch.tensor([[[0.5, 1.0, 3.0, 1.3],
+                                [-1.0, 0.5, 2.0, 0.7]]], **f32)
+        width = height = 32
+        clip = clip_from_eye(world, [0.0, 0.0, 6.0], width, height)
+        sigma, blur = 1e-4, 0.01
     elif name == "sphere":
         v, tris, _ = shapes.sphere(1.0, resolution=157)
         world = v[None].to(device)

@@ -784,7 +784,11 @@ def test_soft_large_mesh_renders_in_one_launch(dev):
     assert 0.2 < float((alpha > 0.5).float().mean()) < 0.9
 
 
-@pytest.mark.parametrize("visits,chunk", [(4, 8), (7, 4), (512, 8)])
+# Visits that no power of two divides (uneven splits above 64 visits, a
+# cluster of 12 CTAs at 45) and chunks 1, 3, 8 and 16 (partial m16 tiles
+# and stages).
+@pytest.mark.parametrize("visits,chunk", [(4, 8), (7, 4), (512, 8), (45, 1),
+                                          (135, 3), (73, 8), (45, 16)])
 def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
     data, coeff, pix = me.make_inputs(visits, chunk, dev)
     before = dict(me.LAUNCHES)
@@ -804,10 +808,13 @@ def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
 # 128, the last partial.
 @pytest.mark.parametrize("visits,chunk", [
     (64, 8), (512, 8), (12, 16), (37, 8),
-    pytest.param(None, 8, id="knife-edge")])
+    pytest.param(None, 8, id="knife-edge"),
+    pytest.param(None, 0, id="depth-ties")])
 def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
-    if visits is None:  # edges through the tc cull's region corners
+    if visits is None and chunk:  # edges through the tc cull's corners
         data, coeff, visits, chunk = mf.make_knife_edge_inputs(dev)
+    elif visits is None:  # copies of each triangle in other splits
+        data, coeff, visits, chunk = mf.make_depth_tie_inputs(dev)
     else:
         data, coeff = mf.make_inputs(visits, chunk, dev)
     before = dict(mf.LAUNCHES)
@@ -818,6 +825,20 @@ def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
     mf.check_tc(mf.launch_tc(coeff, visits, chunk),
                 mf.tc_pairs(coeff, visits, chunk))
     assert mf.LAUNCHES == {name: n + 1 for name, n in before.items()}
+    # prod at every visit split that divides the visits, up to 8, and each
+    # group and split of K3's cluster: the same outputs.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = mf.prod_shape(visits, chunk, dev)
+    assert shape["splits"] == mf.prod_splits(visits, sms)
+    assert (shape["group"], shape["split"]) == rb.launch_rule(
+        shape["splits"], visits // shape["splits"] * chunk, 128, 16, sms,
+        shape["slots"])
+    for splits in (d for d in range(1, 9) if visits % d == 0):
+        for group, split in test_utils.bary_shapes()[1:]:
+            forced = mf.launch_prod(data, visits, chunk,
+                                    (splits, group, split))
+            for k, p in zip(forced, prod):
+                assert torch.equal(k, p)
     with pytest.raises(ValueError, match="multiple of 8"):
         mf.launch_tc(coeff[:visits * 5 * 4], visits, 4)
 
@@ -870,11 +891,14 @@ def test_microbench_wrappers_reject_what_the_kernels_do_not_take(
 
 
 def test_device_profile_falls_back_to_cuda_events(dev):
-    # The microbenchmark kernel fma at its headline shape, profiled and, as
-    # when the profiler records no kernel, by held CUDA events.
+    # The microbenchmark kernel fma at its headline shape, twice a call,
+    # profiled and, as when the profiler records no kernel, by held CUDA
+    # events. The profiler now and then drops a kernel of a long session,
+    # so a call of one kernel could count 0.9 kernels a call over 20.
     data = me.make_inputs(512, 8, dev)[0]
 
     def fn():
+        me.launch_fma(data, 512, 8)
         return me.launch_fma(data, 512, 8)
 
     by_name, total, count = common.device_profile(fn, iters=20)

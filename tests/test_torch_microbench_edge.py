@@ -85,12 +85,11 @@ def _fold_fma_loop(data, visits, chunk):
     triangle; each value computed as the kernel computes it."""
     px, py = (t.numpy() for t in common.tile_pixel_coords("cpu"))
     rows = data.numpy().reshape(visits, chunk, 16)
-    splits = common.visit_splits(visits)
-    per_split = visits // splits
+    splits = me.edge_splits(visits)
     out = np.zeros(common.N_PIX, np.float32)
     for j in range(splits):
         acc = np.zeros(common.N_PIX, np.float32)
-        for v in range(j * per_split, (j + 1) * per_split):
+        for v in range(j * visits // splits, (j + 1) * visits // splits):
             for c in range(chunk):
                 r = rows[v, c]
                 e0 = r[0] * px + r[1] * py + r[2]
@@ -105,7 +104,8 @@ def _fold_fma_loop(data, visits, chunk):
     return out.reshape(common.TILE_H, common.TILE_W)
 
 
-@pytest.mark.parametrize("visits,chunk", [(64, 8), (7, 3)])
+# (135, 2): splits of 2 and 3 visits; (45, 1): one visit a split.
+@pytest.mark.parametrize("visits,chunk", [(64, 8), (7, 3), (135, 2), (45, 1)])
 def test_fma_plain_version_sums_in_the_kernel_order(visits, chunk):
     data, _, _ = me.make_inputs(visits, chunk, "cpu")
     plain = me.fold_fma_torch(data, visits, chunk).numpy()
@@ -124,6 +124,39 @@ def test_tf32_rounding_is_round_to_nearest_away():
     hi, lo = common.tf32_split(v)
     assert bool((common.tf32_round(hi) == hi).all())
     assert bool(((hi + lo - v).abs() <= 2.0 ** -21 * v.abs()).all())
+
+
+def test_edge_launch_rule():
+    """The kernels' decomposition: one split of the visits a warp, up to
+    64; a cluster of ceil(splits / 4) CTAs per 64-pixel group (16 at the
+    script's 512 visits: 32 x 16 = 512 CTAs, at least two on each of an
+    H100's 132 SMs); 2 pixels a lane (fma) and 8 n8 tiles a warp (tc)."""
+    assert (me.WARPS, me.GROUP_PIX, me.PIX_PER_LANE, me.TILES) == (4, 64, 2,
+                                                                   8)
+    assert [me.edge_splits(v) for v in (1, 7, 45, 64, 135, 512)] == [
+        1, 7, 45, 64, 64, 64]
+    assert [me.edge_cluster(s) for s in (1, 4, 5, 45, 64)] == [1, 1, 2, 12,
+                                                                16]
+    assert common.N_PIX // me.GROUP_PIX * me.edge_cluster(
+        me.edge_splits(512)) >= 2 * 132
+    for visits in (1, 7, 45, 64, 135, 512):
+        bounds = me.split_visits(visits)
+        assert len(bounds) == me.edge_splits(visits)
+        assert bounds[0][0] == 0 and bounds[-1][1] == visits
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        sizes = [e - f for f, e in bounds]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    with pytest.raises(ValueError, match="visits"):
+        me.edge_splits(0)
+
+
+def test_tc_pixel_operands_are_tf32_exact():
+    """The pixel matrix's TF32 lo part is zero (centres on a 2^-9 grid in
+    [-1, 1], and 1), so 3xTF32's hi*lo product, which tc_tf32x3 drops, is
+    exactly zero."""
+    pix = me.make_inputs(4, 8, "cpu")[2]
+    hi, lo = common.tf32_split(pix)
+    assert torch.equal(hi, pix) and not bool(lo.any())
 
 
 def test_visit_splits():

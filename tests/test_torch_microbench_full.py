@@ -32,7 +32,9 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_mesh_renderer_tpu_torch.microbench import common
 from pytorch_mesh_renderer_tpu_torch.microbench import mxu_full as mf
+from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from test_torch_microbench_edge import run_script
 
 VISITS = 64
@@ -159,6 +161,47 @@ def test_pair_counts_box_the_covered_pixels():
     dead[15] = 0.0
     boxed, inside = mf.pair_counts(torch.stack([row, dead]))
     assert (boxed, inside) == (3 * 5, 9)
+
+
+def test_prod_launch_rule():
+    """prod's launch: K3's rule (group 1, split 8 on an H100's 132 SMs at
+    any resident-slot count of 2 to 8 a SM) picks each visit split's
+    clusters, 8 x 8 CTAs, and the fewest visit splits that divide the
+    visits and give every SM a CTA: 4 at the script's 512 visits (256 CTAs,
+    1.9 a SM), 3 at 12; one where 64 CTAs cover the card; the largest
+    divisor up to 32 where none does. `launch_rule` is the plain model of
+    the launcher's rule, held against it on the card."""
+    assert mf.prod_splits(512, 132) == 4
+    assert mf.prod_splits(12, 132) == 3
+    assert mf.prod_splits(512, 64) == 1
+    assert mf.prod_splits(37, 132) == common.visit_splits(37) == 1
+    assert mf.prod_splits(2, 132) == common.visit_splits(2) == 2
+    for visits, splits in ((512, 4), (12, 3), (37, 1)):
+        rows = visits // splits * 8
+        for per_sm in (2, 4, 8):
+            assert rb.launch_rule(splits, rows, common.TILE_W,
+                                  common.TILE_H, 132, 132 * per_sm) == (1, 8)
+    # K3's rule elsewhere, at 4 slots a SM: one teapot image at 256^2
+    # (group 1, split 8) and four (split 2: 1,024 clusters); sphere72 at
+    # 512^2 (group 2); a grid too deep for split 8 or 4.
+    assert rb.launch_rule(1, 2464, 256, 256, 132, 528) == (1, 8)
+    assert rb.launch_rule(4, 2464, 256, 256, 132, 528) == (1, 2)
+    assert rb.launch_rule(1, 10368, 512, 512, 132, 528) == (2, 8)
+    assert rb.launch_rule(20000, 1, 16, 16, 132, 10 ** 6) == (1, 2)
+
+
+def test_depth_tie_table_ties_across_visits():
+    """make_depth_tie_inputs: every pixel's winner is a copy of a base
+    triangle that is not its first, most are its last copy, and some win at
+    z = 0 (ties of +0.0 and -0.0)."""
+    data, _, visits, chunk = mf.make_depth_tie_inputs("cpu")
+    z, ids, *_ = mf.zbuffer_prod_torch(data)
+    won = ids[ids >= 0].long()
+    assert won.numel() > 1000
+    assert bool((won >= 61).all())
+    last = (won % 61) + 61 * ((visits * chunk - 1 - won % 61) // 61)
+    assert float((won == last).float().mean()) > 0.5
+    assert int((z == 0.0).sum()) > 0
 
 
 def test_the_kernels_need_a_card():

@@ -10,7 +10,8 @@ package; `torch.optim.Adam` stands against `optax.adam`. Tolerances:
   * losses within 1e-4 relative at each of 5 steps: the renders agree to
     ~1e-6 (tests/test_torch_mesh_renderer.py) and the soft silhouette to
     ~1e-5 at sigma 1e-4 (tests/test_torch_soft_renderer.py; the pose fit
-    against the JAX package's Pallas route, see `_jax_pose_loss`), and
+    against the JAX package's XLA route from angles 0, and against its
+    Pallas route away from the ties, see `_jax_pose_loss`), and
     Adam's first steps move each parameter by about its learning rate
     whatever the gradient's size, so the losses stay as close as the
     renders;
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import optax
 
@@ -91,18 +93,20 @@ def _port_hard_loss(scene):
     return loss_fn
 
 
-def _jax_pose_loss():
-    """JAX's pose loss through its Pallas kernels in interpret mode (the
-    route bench.py's pose fit runs on its chip): from angles 0 the cube's
-    square faces put pixel centres at equal distance from two edges of a
-    triangle, where the kernels (and the port) take the gradient of the
-    first nearest edge while the XLA route's jnp.min splits it between
-    them (ROADMAP Queue 3)."""
+def _jax_pose_loss(backend):
+    """JAX's pose loss through `backend`: "xla" (JAX's own derivative of
+    the model's math) or "pallas" (its kernels in interpret mode, the route
+    bench.py's pose fit runs on its chip). From angles 0 the cube's square
+    faces put pixel centres at exactly equal distance from two edges of a
+    triangle: the XLA route's jnp.min splits the squared distance's
+    gradient evenly between them, as the port does, while the Pallas
+    kernels give it all to the first nearest edge (ROADMAP Queue 3)."""
     v, t, _ = shapes.cube(2.0)
     v, t = v.numpy(), t.numpy()
     cam = (np.float32([[0.0, 0.0, 6.0]]), np.zeros((1, 3), np.float32),
            np.float32([[0.0, 1.0, 0.0]]))
-    config = jconfig.SoftRasterizerConfig(backend="pallas", interpret=True)
+    config = jconfig.SoftRasterizerConfig(backend=backend,
+                                          interpret=backend == "pallas")
 
     def render_alpha(angles):
         rot = jcamera.euler_matrices(angles[None])[0, :3, :3]
@@ -178,18 +182,45 @@ def test_hard_cube_fit_steps_match_jax():
     _assert_steps_match(got, want, HARD_LR)
 
 
-def test_silhouette_pose_fit_steps_match_jax():
+@pytest.mark.parametrize("backend, angles0", [
+    ("xla", (0.0, 0.0, 0.0)), ("pallas", (0.03, -0.02, 0.04))])
+def test_silhouette_pose_fit_steps_match_jax(backend, angles0):
     """5 Adam steps of bench.py's pose fit (a cube's rotation from its
-    soft silhouette, loss 1 - IoU) at 32x32 from angles 0: the port's
-    make_train_step vs JAX's with optax.adam, through its Pallas
-    kernels."""
-    jax_loss, render_alpha = _jax_pose_loss()
+    soft silhouette, loss 1 - IoU) at 32x32: the port's make_train_step vs
+    JAX's with optax.adam, through its XLA route from angles 0 (bench.py's
+    start, where nearest-edge distances tie) and through its Pallas kernels
+    from angles (0.03, -0.02, 0.04), where no distance ties on the five
+    steps' path (from (0.05, -0.05, 0.05) Adam's first step, which moves
+    each angle by about its learning rate, lands on angles 0)."""
+    jax_loss, render_alpha = _jax_pose_loss(backend)
     target = np.asarray(render_alpha(jnp.asarray(POSE_TARGET)))
-    want = _jax_steps(jax_loss, {"angles": jnp.zeros(3)},
+    angles0 = np.float32(angles0)
+    want = _jax_steps(jax_loss, {"angles": jnp.asarray(angles0)},
                       {"target": target}, POSE_LR)
-    got = _port_steps(_port_pose_loss()[0], np.zeros(3, np.float32),
+    got = _port_steps(_port_pose_loss()[0], angles0.copy(),
                       {"target": torch.from_numpy(target)}, POSE_LR)
     _assert_steps_match(got, want, POSE_LR)
+
+
+def test_pose_gradient_at_nearest_edge_ties_matches_jax_xla_route():
+    """d loss / d angles of the pose fit at angles 0, where 10 of the 342
+    valid (pixel, triangle) pairs lie at exactly equal distance from two
+    edges: the port's plain route splits the squared distance's gradient
+    between the tied edges (torch.amin) as JAX's XLA route does (jnp.min;
+    z: 0.11963), not all to the first edge as the Pallas kernels do
+    (0.09431). Within 1e-4 of the gradient's max |value|, the gradients'
+    agreement elsewhere (module docstring)."""
+    jax_loss, render_alpha = _jax_pose_loss("xla")
+    target = np.asarray(render_alpha(jnp.asarray(POSE_TARGET)))
+    want = np.asarray(jax.grad(lambda a: jax_loss(
+        {"angles": a}, {"target": target}))(jnp.zeros(3)))
+    angles = torch.zeros(3, requires_grad=True)
+    _port_pose_loss()[0]([angles], {"target": torch.from_numpy(target)}
+                         ).backward()
+    got = angles.grad.numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    np.testing.assert_allclose(want[2], 0.11963, atol=1e-5)
 
 
 @pytest.mark.parametrize("fit", ["hard", "pose"])
