@@ -128,6 +128,33 @@ The training step and loop, and the bench, follow:
                (`python -m pytorch_mesh_renderer_tpu_torch.bench`) in
                process with fewer iterations, each JSON line printed.
 
+The example CLIs follow:
+
+ 15. examples — each CLI of pytorch_mesh_renderer_tpu_torch/examples/
+               run in process by its `main` at its default `--device cuda`,
+               into a temporary directory, counting launches: the hard
+               teapot at 640x480 (K1) and the soft at 100x100 (K7), each
+               PNG read back within 1 uint8 level of the plain route's
+               render; the cube rotation hard (K1, K2) and --soft (K7, K8),
+               50 steps, and the teapot rotation hard with --scan-chunk 10
+               and --soft, 60 steps, each final loss finite and below its
+               first; the camera pose, 100 steps, its losses finite. Before
+               each optimization its first-step gradient (the angles, and
+               the eye of the camera pose) through the kernels is held
+               against the plain route's on its own render, start and
+               target (GRAD_RTOL hard, SOFT_GRAD_RTOL soft). The flagship
+               cow fit at docs/flagship/README.md's command (K5, K6) on the
+               vendored targets, its epoch-99 and epoch-1999 lines within
+               FLAGSHIP_BANDS of docs/flagship/trajectory.log, and its
+               seconds per 1,000 epochs; 200 epochs with --checkpoint as
+               two invocations of 100: the checkpoint holds the first's end
+               state, the second starts from it and saves Adam at step 200;
+               its loss and vertices are printed beside two invocations of
+               200, not gated (the kernels' atomics); the same on the plain
+               route with deterministic algorithms, where 100 + 100 epochs
+               equal 200 within RESUME_RTOL; the native OBJ parser's teapot
+               against the Python parser's, and both parsers' times.
+
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, fp32 at 67 TFLOP/s and tensor-core TF32 at 495
@@ -142,6 +169,10 @@ import os
 import re
 import sys
 import time
+
+# cuBLAS needs a fixed workspace for torch.use_deterministic_algorithms,
+# which phase 15's deterministic runs turn on; set before torch loads it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "pytorch_mesh_renderer_tpu_torch/csrc/"
@@ -196,6 +227,33 @@ SOFT_COLS_READ = {"soft_fwd": 56, "soft_bwd": 56, "soft_sil_fwd": 29,
 # printed beside this run's numbers, not gated: the TPU run reduced its
 # gradients at bf16 precision.
 FLAGSHIP_EPOCH_99 = {"loss": 0.05465, "iou": 0.7842}
+# Phase 15 holds the port's flagship run to trajectory.log's lines at
+# epochs 99 and 1999 (docs/flagship/trajectory.log:3, :41), a quality
+# reference (its seconds are a TPU's and are not quoted): (loss relative,
+# IoU absolute) bands. The fit is chaotic on the card: the backward's
+# atomics change the last bits of every gradient, Adam carries them, and
+# two runs of one command end apart (PERF.md §6). At epoch 99 the
+# card's runs lie around the log, within its +-2% / +-0.01; at epoch 1999
+# they land from -5.9% to +0.2% in loss and +0.001 to +0.021 in IoU, on
+# the kernels and on the plain route alike (`utils/fit_spread.py`, ten
+# and three runs; PERF.md §6), so the band there is one-sided: a run may
+# fit better than the TPU's did, not worse.
+FLAGSHIP_LOG = {99: {"loss": 0.05465, "iou": 0.7842},
+                1999: {"loss": 0.05328, "iou": 0.7853}}
+FLAGSHIP_BANDS = {99: ((-0.02, 0.02), (-0.01, 0.01)),
+                  1999: ((-0.10, 0.02), (-0.01, 0.03))}
+FLAGSHIP_ARGS = ["--size", "128", "--resolution", "24", "--scan-chunk", "100",
+                 "--preview-every", "100"]
+# The resumed invocation's first loss against the loss at the saved state
+# (the Laplacian loss sums neighbours by atomics: last bits). Its later
+# losses are not gated against a straight run's: they differ by the chaos
+# above (PERF.md §6).
+RESUME_START_RTOL = 1e-6
+# 100 + 100 epochs through --checkpoint against 200 straight on the plain
+# route with deterministic algorithms: loss relative, vertices of max |v|.
+RESUME_RTOL = 1e-4
+# load_obj calls timed per parser on the teapot.
+LOAD_OBJ_RUNS = 5
 
 CUBE_VERTICES = [[-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1],
                  [1, -1, 1], [1, -1, -1], [1, 1, -1], [1, 1, 1]]
@@ -1009,6 +1067,316 @@ def microbench_phase(dev, card):
     return errors, rel_errors, launches, ms, plain_ms, library_ms, bounds
 
 
+def examples_phase(dev, card):
+    """Phase 15: every example CLI's `main` on the card, in process, at its
+    default device, into a temporary directory (see the module docstring).
+    """
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import config as config_lib
+    from pytorch_mesh_renderer_tpu_torch.examples import (
+        common, fit_shape_multiview, optimize_camera_pose,
+        optimize_cube_rotation, optimize_teapot_rotation, render_teapot_hard,
+        render_teapot_soft)
+    from pytorch_mesh_renderer_tpu_torch.ops import losses
+    from pytorch_mesh_renderer_tpu_torch.utils import (checkpoint, native,
+                                                       obj_io, test_utils)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    plain_hard = config_lib.HardRasterizerConfig(backend="torch")
+    plain_soft = config_lib.SoftRasterizerConfig(backend="torch")
+
+    def run(label, module, argv, kernels, **options):
+        """(main's result, seconds) after checking that each of `kernels`
+        launched in the call."""
+        reset_hard_launch_counts()
+        reset_soft_launch_counts()
+        t0 = time.perf_counter()
+        result = module.main(argv, **options)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {**hard_launch_counts(), **soft_launch_counts()}
+        launched = {name: counts[name] for name in kernels}
+        # No kernels named: the plain route, which launches none.
+        if not (all(launched.values()) if kernels
+                else not any(counts.values())):
+            raise AssertionError(f"examples: {label} launched {counts}")
+        log("examples", f"{label}: {seconds:.2f} s, launches {launched}")
+        return result, seconds
+
+    def render_check(label, module, argv, kernel, plain):
+        path = os.path.join(tmp, f"{label}.png")
+        run(label, module, argv + ["--out", path], [kernel])
+        with torch.no_grad():
+            want = plain().clamp(0.0, 1.0).cpu().double().numpy()
+        want = (want * 255.0).astype(np.uint8).astype(np.int16)
+        got = test_utils.read_png(path).astype(np.int16)
+        err = int(np.abs(got - want).max())
+        if got.shape != want.shape or err > 1:
+            raise AssertionError(f"examples: {label} PNG {got.shape} vs the "
+                                 f"plain route's {want.shape}, max {err} "
+                                 "uint8 levels (gate 1)")
+        log("examples", f"{label}: PNG {got.shape} within {err} uint8 level "
+            "of the plain route's render (gate 1)")
+
+    def gradient_check(label, make_render, params, target, soft):
+        """The CLI's first-step gradient (d loss / d each of its
+        parameters) through the kernels against the plain route's, on
+        the CLI's own render, start and target: within GRAD_RTOL (hard)
+        or SOFT_GRAD_RTOL (soft) of the plain gradient's max |value|."""
+        def gradients(config):
+            render = make_render(config)
+            leaves = [p.clone().requires_grad_(True) for p in params]
+            loss = losses.image_l1_loss(render(*leaves), target)
+            return torch.autograd.grad(loss, leaves)
+
+        backward = "soft_bwd" if soft else "rasterize_fused_bwd"
+        reset_hard_launch_counts()
+        reset_soft_launch_counts()
+        by_kernel = gradients(None)
+        launched = {**hard_launch_counts(), **soft_launch_counts()}[backward]
+        by_plain = gradients(plain_soft if soft else plain_hard)
+        scale = max(float(g.abs().max()) for g in by_plain)
+        err = max(float((k - p).abs().max())
+                  for k, p in zip(by_kernel, by_plain)) / scale
+        rtol = test_utils.SOFT_GRAD_RTOL if soft else GRAD_RTOL
+        shown = "; ".join(
+            f"{np.asarray(k.cpu()).round(8)} vs {np.asarray(p.cpu()).round(8)}"
+            for k, p in zip(by_kernel, by_plain))
+        log("examples", f"{label} first-step gradient, kernels vs plain: "
+            f"{shown}; {err:.3g} of max |plain| (gate {rtol}), "
+            f"{backward} launched {launched}")
+        if not launched or not err <= rtol:
+            raise AssertionError(f"examples: {label} gradient through the "
+                                 "kernels off the plain route's")
+
+    def rotation_check(label, module, make_render, start, soft):
+        with torch.no_grad():  # the target as the CLI renders it
+            target = make_render(None)(torch.tensor(module.TARGET_ANGLES,
+                                                    **f32))
+        gradient_check(label, make_render, [torch.tensor(start, **f32)],
+                       target, soft)
+
+    def optimization(label, module, argv, kernels, converges=True):
+        result, _ = run(label, module, argv, kernels)
+        history = result["losses"]
+        if not np.isfinite(history).all():
+            raise AssertionError(f"examples: {label} losses not finite")
+        if converges and not history[-1] < history[0]:
+            raise AssertionError(f"examples: {label} loss did not fall "
+                                 f"({history[0]} -> {history[-1]})")
+        finals = ", ".join(f"{key} {np.asarray(value).round(4)}"
+                           for key, value in result.items()
+                           if key in ("angles", "eye"))
+        log("examples", f"{card} | {label}: loss {history[0]:.5f} -> "
+            f"{history[-1]:.5f} in {len(history)} steps, {finals}; "
+            f"{result['steps_per_s']:.1f} steps/s after the first step")
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        render_check(
+            "render_teapot_hard 640x480", render_teapot_hard, [],
+            "rasterize_fused_fwd", lambda: render_teapot_hard.render_teapot(
+                None, 640, 480, dev,
+                config_lib.HardRasterizerConfig(backend="torch")))
+        render_check(
+            "render_teapot_soft 100x100", render_teapot_soft, [], "soft_fwd",
+            lambda: render_teapot_soft.render_teapot(
+                None, 100, 1e-5, 1e-4, dev,
+                config_lib.SoftRasterizerConfig(backend="torch")))
+        hard = ["rasterize_fused_fwd", "rasterize_fused_bwd"]
+        soft = ["soft_fwd", "soft_bwd"]
+        # Each optimization at its defaults: first its gradient at its
+        # start, kernels vs plain route (launches not counted), then the
+        # CLI's own run.
+        for is_soft, flags, kernels in ((False, [], hard),
+                                        (True, ["--soft"], soft)):
+            label = " ".join(["optimize_cube_rotation"] + flags + ["128^2"])
+            rotation_check(
+                label, optimize_cube_rotation,
+                lambda config, s=is_soft: optimize_cube_rotation.make_render(
+                    s, 128, dev, config), [0.0, 0.0, 0.0], is_soft)
+            optimization(label, optimize_cube_rotation, flags, kernels)
+        start = [a + optimize_teapot_rotation.PERTURBATION
+                 for a in optimize_teapot_rotation.TARGET_ANGLES]
+        for is_soft, flags, kernels in (
+                (False, ["--scan-chunk", "10"], hard),
+                (True, ["--soft"], soft)):
+            label = " ".join(["optimize_teapot_rotation"] + flags + ["128^2"])
+            rotation_check(
+                label, optimize_teapot_rotation,
+                lambda config, s=is_soft: optimize_teapot_rotation.make_render(
+                    None, s, 128, dev, config), start, is_soft)
+            optimization(label, optimize_teapot_rotation, flags, kernels)
+        gradient_check(
+            "optimize_camera_pose 320x240",
+            lambda config: optimize_camera_pose.make_render(
+                None, 320, 240, dev, config),
+            [torch.tensor(optimize_camera_pose.INITIAL_EYE, **f32),
+             torch.tensor(optimize_camera_pose.INITIAL_ANGLES, **f32)],
+            optimize_camera_pose.load_target(
+                common.target_path("example4_target.png"), 320, 240).to(dev),
+            soft=False)
+        optimization("optimize_camera_pose 320x240", optimize_camera_pose, [],
+                     hard, converges=False)
+
+        # The flagship at docs/flagship/README.md's command.
+        sil = ["soft_sil_fwd", "soft_sil_bwd"]
+        fit, seconds = run("fit_shape_multiview 2000 epochs",
+                           fit_shape_multiview,
+                           ["--epochs", "2000", "--out-prefix",
+                            os.path.join(tmp, "cow")] + FLAGSHIP_ARGS, sil)
+        if not fit["targets_from_file"]:
+            raise AssertionError("examples: the fit did not read the "
+                                 "vendored targets")
+        lines = {p["epoch"]: p for p in fit["previews"]}
+        for epoch, want in FLAGSHIP_LOG.items():
+            got = lines[epoch]
+            loss_err = (got["loss"] - want["loss"]) / want["loss"]
+            iou_err = got["iou"] - want["iou"]
+            (loss_lo, loss_hi), (iou_lo, iou_hi) = FLAGSHIP_BANDS[epoch]
+            log("examples", f"flagship epoch {epoch}: loss {got['loss']:.5f} "
+                f"IoU {got['iou']:.4f}; trajectory.log loss {want['loss']} "
+                f"IoU {want['iou']}: loss {loss_err:+.4f} relative (band "
+                f"{loss_lo:+} to {loss_hi:+}), IoU {iou_err:+.4f} (band "
+                f"{iou_lo:+} to {iou_hi:+})")
+            if not (loss_lo <= loss_err <= loss_hi
+                    and iou_lo <= iou_err <= iou_hi):
+                raise AssertionError(f"examples: flagship epoch {epoch} off "
+                                     "trajectory.log")
+        log("examples", f"{card} | flagship: {seconds / 2:.3f} s per 1,000 "
+            f"epochs (the whole run of 2,000 epochs with its 20 previews: "
+            f"{seconds:.2f} s); {fit['steps_per_s']:.1f} steps/s after the "
+            "first chunk, previews included")
+
+        # Resume: 100 + 100 epochs through --checkpoint, beside 200.
+        def fit_run(epochs, prefix, ckpt=None, config=None):
+            argv = ["--epochs", str(epochs), "--out-prefix",
+                    os.path.join(tmp, prefix)] + FLAGSHIP_ARGS
+            if ckpt:
+                argv += ["--checkpoint", ckpt]
+            label = (f"fit_shape_multiview {epochs} epochs"
+                     + (" --checkpoint" if ckpt else "")
+                     + (" (plain route)" if config else ""))
+            return run(label, fit_shape_multiview, argv,
+                       [] if config else sil, config=config)[0]
+
+        ckpt = os.path.join(tmp, "fit.ckpt")
+        straight = fit_run(200, "straight")
+        again = fit_run(200, "again")
+        first = fit_run(100, "resumed", ckpt)
+        problem = fit_shape_multiview.Problem(
+            fit_shape_multiview.parse_args(FLAGSHIP_ARGS), dev)
+
+        def saved_state(step, vertices):
+            """The checkpoint's offsets, after checking that it holds
+            `step` steps (its own count and Adam's) and the `vertices` the
+            invocation ended with, bit for bit."""
+            state = checkpoint.restore(
+                ckpt, {"params": [torch.zeros_like(problem.verts0)],
+                       "step": 0})
+            saved = state["params"][0]
+            if not (state["step"] == step and float(
+                    state["opt_state"]["state"][0]["step"]) == float(step)
+                    and np.array_equal(
+                        (problem.verts0 + saved).cpu().numpy(), vertices)):
+                raise AssertionError(f"examples: the checkpoint does not hold "
+                                     f"the state of step {step}")
+            return saved
+
+        saved = saved_state(100, first["vertices"])
+        with torch.no_grad():
+            saved_loss = float(problem.loss([saved], problem.targets))
+        resumed = fit_run(200, "resumed", ckpt)
+        start_err = abs(resumed["losses"][0] - saved_loss) / saved_loss
+        if ([p["epoch"] for p in resumed["previews"]] != [199]
+                or len(resumed["losses"]) != 100
+                or not start_err <= RESUME_START_RTOL):
+            raise AssertionError(
+                f"examples: the second invocation did not resume from the "
+                f"checkpoint (its first loss {resumed['losses'][0]} vs "
+                f"{saved_loss} at the saved state)")
+        # Adam went on from the restored state: its count reached 200.
+        saved_state(200, resumed["vertices"])
+        loss_a = straight["previews"][-1]["loss"]
+        loss_b = resumed["previews"][-1]["loss"]
+        loss_err = abs(loss_b - loss_a) / abs(loss_a)
+        scale = np.abs(straight["vertices"]).max()
+        v_err = float(np.abs(resumed["vertices"]
+                             - straight["vertices"]).max() / scale)
+        v_spread = float(np.abs(again["vertices"]
+                                - straight["vertices"]).max() / scale)
+        loss_spread = abs(again["previews"][-1]["loss"] - loss_a) / loss_a
+        log("examples", f"resume: the checkpoint holds the first "
+            f"invocation's end state (offsets bit for bit, Adam at step "
+            f"100); the second invocation's first loss is {start_err:.3g} "
+            f"relative off the saved state's (gate {RESUME_START_RTOL}), "
+            f"and it saves Adam at step 200. Not gated (the fit is chaotic "
+            f"on the card): at epoch 199 100 + 100 epochs give loss "
+            f"{loss_b:.6f}, 200 straight {loss_a:.6f} ({loss_err:.3g} "
+            f"relative), vertices {v_err:.3g} of max |v| apart; a second "
+            f"straight run ends {loss_spread:.3g} in loss and {v_spread:.3g} "
+            "of max |v| from the first")
+
+        # The same resume on the plain route with deterministic
+        # algorithms (its scatters in a fixed order): 100 + 100 epochs
+        # must equal 200 straight within RESUME_RTOL.
+        torch.use_deterministic_algorithms(True)
+        try:
+            plain_ckpt = os.path.join(tmp, "plain.ckpt")
+            plain_straight = fit_run(200, "plain_straight", config=plain_soft)
+            fit_run(100, "plain_resumed", plain_ckpt, plain_soft)
+            plain_resumed = fit_run(200, "plain_resumed", plain_ckpt,
+                                    plain_soft)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        loss_a = plain_straight["previews"][-1]["loss"]
+        loss_err = abs(plain_resumed["previews"][-1]["loss"] - loss_a) / loss_a
+        scale = np.abs(plain_straight["vertices"]).max()
+        v_err = float(np.abs(plain_resumed["vertices"]
+                             - plain_straight["vertices"]).max() / scale)
+        log("examples", f"resume on the plain route, deterministic: at epoch "
+            f"199 100 + 100 epochs give loss "
+            f"{plain_resumed['previews'][-1]['loss']:.6f}, 200 straight "
+            f"{loss_a:.6f} ({loss_err:.3g} relative), vertices {v_err:.3g} "
+            f"of max |v| apart (gate {RESUME_RTOL} on both)")
+        if not (loss_err <= RESUME_RTOL and v_err <= RESUME_RTOL):
+            raise AssertionError("examples: the plain route's resumed fit "
+                                 "is off its straight run")
+
+    # The native OBJ parser on this host.
+    if native.load_library() is None:
+        raise AssertionError("examples: the native OBJ parser did not build "
+                             "or load")
+    teapot_path = os.path.join(REPO, "assets", "teapot.obj")
+
+    def load_teapot():
+        """(load_obj's result, the median host seconds of LOAD_OBJ_RUNS
+        calls)."""
+        seconds = []
+        for _ in range(LOAD_OBJ_RUNS):
+            t0 = time.perf_counter()
+            mesh = obj_io.load_obj(teapot_path)
+            seconds.append(time.perf_counter() - t0)
+        return mesh, float(np.median(seconds))
+
+    by_native, native_s = load_teapot()
+    with mock.patch.object(native, "parse_obj", lambda path: None):
+        by_python, python_s = load_teapot()
+    if not all(torch.equal(a, b) for a, b in zip(by_native, by_python)):
+        raise AssertionError("examples: the native and Python OBJ parsers "
+                             "differ on the teapot")
+    log("examples", f"native OBJ parser: the teapot's {by_native[0].shape[0]} "
+        f"vertices, {by_native[1].shape[0]} triangles and normals equal the "
+        f"Python parser's; load_obj {native_s * 1e3:.3f} ms native, "
+        f"{python_s * 1e3:.3f} ms Python (host, median of {LOAD_OBJ_RUNS}); "
+        f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def loop_phase(dev, card, teapot):
     """Phase 14: the captured training step and loop
     (`parallel.make_train_step`, `make_train_loop`) and the bench.
@@ -1793,8 +2161,11 @@ def main():
     # 14. The captured training step and loop, and the bench.
     t0 = time.perf_counter()
     loop_phase(dev, card, teapot)
-    log("loop", f"phase 14 took {time.perf_counter() - t0:.1f} s; the "
-        f"script {time.perf_counter() - started:.1f} s")
+    log("loop", f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # 15. The example CLIs, the flagship fit and the native OBJ parser.
+    examples_phase(dev, card)
+    log("examples", f"the script took {time.perf_counter() - started:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

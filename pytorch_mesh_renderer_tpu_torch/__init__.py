@@ -15,13 +15,17 @@ renderer, forward and backward:
     alpha = pmt.soft_mesh_renderer.render_silhouette(vertices, ...)
 
 A CPU tensor renders through the plain PyTorch versions of the kernels; a
-CUDA tensor renders through the kernels.
+CUDA tensor renders through the kernels. `parallel` holds the training
+step and loop, `utils` the OBJ, checkpoint, debug and profiling helpers,
+and `examples` the six example CLIs (`python -m
+pytorch_mesh_renderer_tpu_torch.examples.<name>`).
 """
 
-from . import config
+from . import config, parallel
 from .models import mesh_renderer, shapes, soft_mesh_renderer
 from .ops import camera, losses, mesh
-from .utils import debug, obj_io
+from .utils import checkpoint, debug, obj_io, profiling
 
-__all__ = ["config", "mesh_renderer", "soft_mesh_renderer", "shapes",
-           "camera", "losses", "mesh", "obj_io", "debug"]
+__all__ = ["config", "parallel", "mesh_renderer", "soft_mesh_renderer",
+           "shapes", "camera", "losses", "mesh", "obj_io", "checkpoint",
+           "debug", "profiling"]

@@ -61,6 +61,7 @@ from .ops import rasterize_cuda as rc
 from .ops import soft_rasterize_cuda as sc
 from .ops.rasterize import select_backend
 from .utils import cost, profiling, scenes
+from .utils.device import resolve_device
 from .utils.soft_work import BLUR
 
 # bench.py:36-45: the reference implementation's throughput on a CPU
@@ -351,7 +352,7 @@ def main(argv=None):
     """Runs the mode that `argv` names and prints its JSON lines; returns
     their dicts."""
     args = parse_args(argv)
-    device = common.resolve_device(args.device)
+    device = resolve_device(args.device)
     card = common.card_line() if device.type == "cuda" else "cpu"
     if args.size is None:
         args.size = 128 if args.pose or args.soft_sweep else 256

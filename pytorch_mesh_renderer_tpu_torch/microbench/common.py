@@ -77,15 +77,6 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32_round(x - hi)
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device a microbenchmark runs on; `cuda` without a card raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs an NVIDIA GPU; --device cpu "
-                           "runs the plain versions")
-    return device
-
-
 def device_name(device: torch.device) -> str:
     """The card's name, or `cpu`: the JSON lines' `device`."""
     return (torch.cuda.get_device_name(device) if device.type == "cuda"

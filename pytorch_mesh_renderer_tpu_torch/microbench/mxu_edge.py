@@ -57,6 +57,7 @@ import json
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import common
 
 VARIANTS = ("fma", "tc_bf16", "tc_tf32x3")
@@ -226,7 +227,7 @@ def fold(variant, data, coeff, pix, visits, chunk):
 
 def run(visits=512, chunk=8, iters=30, device="cuda"):
     """Evaluate and time the three variants; returns the JSON dict."""
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     data, coeff, pix = make_inputs(visits, chunk, dev)
     results = {}
     ref = None

@@ -66,6 +66,7 @@ import torch
 
 from ..ops.barycentric import pixel_is_inside
 from ..utils import kernels
+from ..utils.device import resolve_device
 from . import common
 
 VARIANTS = ("prod", "tc")
@@ -473,7 +474,7 @@ def zbuffer(variant, data, coeff, visits, chunk):
 
 def run(visits=512, chunk=8, iters=30, device="cuda"):
     """Compute, compare and time both variants; returns the JSON dict."""
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     data, coeff = make_inputs(visits, chunk, dev)
     calls = {name: (lambda name=name: zbuffer(name, data, coeff, visits,
                                               chunk))

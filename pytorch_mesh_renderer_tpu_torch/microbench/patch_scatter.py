@@ -51,6 +51,7 @@ from ..ops import rasterize_barycentric_cuda as rb
 from ..ops import rasterize_cuda as rc
 from ..ops.barycentric import pixel_is_inside
 from ..utils import scenes
+from ..utils.device import resolve_device
 from . import common
 
 # Launches of the patch-eval kernel in this process; the wrapper adds one
@@ -308,7 +309,7 @@ def run(config="headline", batch=4, iters=20, windows=3, cap=32,
     and time every stage; returns (the JSON dict, the instance table that
     stage B evaluated)."""
     patch = parse_patch(patch)
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     size, sphere = CONFIGS[config]
     scene = scenes.build_scene(batch, dev, sphere)
     tris = scene["triangles"]

@@ -37,7 +37,7 @@ def select_backend(cfg: config_lib.HardRasterizerConfig,
 
 
 def rasterize_barycentric(clip_space_vertices, triangles, image_width,
-                          image_height, config=None, row_offset=0,
+                          image_height, config=None, row_offset=None,
                           full_height=None):
     """Rasterize one mesh in clip space to (ids, barycentrics, z-buffer).
 
@@ -46,7 +46,7 @@ def rasterize_barycentric(clip_space_vertices, triangles, image_width,
       triangles: [triangle_count, 3] int32, on the same device.
       image_width, image_height: ints (the strip size when row_offset /
         full_height render rows [row_offset, row_offset + image_height) of
-        a full_height-row image).
+        a full_height-row image; row_offset None is 0).
 
     Returns:
       (ids [H, W] i32, barycentrics [H, W, 3] f32, z [H, W] f32);
@@ -57,6 +57,7 @@ def rasterize_barycentric(clip_space_vertices, triangles, image_width,
         raise ValueError("clip_space_vertices must have shape [V, 4].")
     cfg = config or config_lib.HARD_CONFIG
     triangles = triangles.to(torch.int32)
+    row_offset = row_offset or 0
     if select_backend(cfg, clip_space_vertices.device) == "cuda":
         ids, bc, z = rasterize_barycentric_cuda(
             clip_space_vertices[None], triangles, image_width, image_height,
@@ -71,7 +72,7 @@ def rasterize_barycentric(clip_space_vertices, triangles, image_width,
 
 def rasterize(world_space_vertices, attributes, triangles, camera_matrices,
               image_width, image_height, background_value, config=None,
-              row_offset=0, full_height=None):
+              row_offset=None, full_height=None):
     """Rasterize a batch of meshes and interpolate vertex attributes.
 
     Args:
@@ -96,7 +97,7 @@ def rasterize(world_space_vertices, attributes, triangles, camera_matrices,
 
 def rasterize_clip_space(clip_space_vertices, attributes, triangles,
                          image_width, image_height, background_value,
-                         config=None, row_offset=0, full_height=None):
+                         config=None, row_offset=None, full_height=None):
     """Rasterize clip-space meshes and interpolate vertex attributes.
 
     Per-pixel attributes are the winning triangle's corner attributes
@@ -114,6 +115,7 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
 
     cfg = config or config_lib.HARD_CONFIG
     device = clip_space_vertices.device
+    row_offset = row_offset or 0
     attributes = attributes.to(torch.float32)
     triangles = triangles.to(torch.int32)
     if select_backend(cfg, device) == "cuda":

@@ -50,7 +50,6 @@ stream the table from device memory and accumulate its gradient there.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
@@ -171,14 +170,20 @@ def make_params(sigma, gamma, blur_radius, row_offset, device):
 
 def pixel_centers(image_width, image_height, row_offset, full_height,
                   device):
-    """(px [W], py [H]) f32 NDC pixel centres, computed in numpy float32
-    (IEEE divisions, as the kernels), rows top-down."""
-    f = np.float32
-    cols = np.arange(image_width, dtype=f)
-    rows = np.arange(image_height, dtype=f) + f(row_offset)
-    px = f(2.0) * (cols + f(0.5)) / f(image_width) - f(1.0)
-    py = f(-2.0) * (rows + f(0.5)) / f(full_height) + f(1.0)
-    return (torch.from_numpy(px).to(device), torch.from_numpy(py).to(device))
+    """(px [W], py [H]) f32 NDC pixel centres, computed in float32 on
+    `device` (IEEE divisions, as the kernels; no copy from the host, so a
+    step that renders through the plain version can be captured), rows
+    top-down."""
+    f32 = dict(dtype=torch.float32, device=device)
+    cols = torch.arange(image_width, **f32)
+    rows = torch.arange(image_height, **f32) + float(row_offset)
+    # Divided by tensors: on CUDA a division by a Python number multiplies
+    # by its rounded reciprocal, which is not the IEEE quotient.
+    width = torch.full((), float(image_width), **f32)
+    height = torch.full((), float(full_height), **f32)
+    px = 2.0 * (cols + 0.5) / width - 1.0
+    py = -2.0 * (rows + 0.5) / height + 1.0
+    return px, py
 
 
 def _safe_sqrt(x):

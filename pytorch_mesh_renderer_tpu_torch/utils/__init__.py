@@ -1,3 +1,4 @@
-"""Host-side utilities: OBJ IO, scene conversion, checks, kernel builds."""
+"""Host-side utilities: OBJ IO, checkpoints, checks, profiling, scene
+conversion, kernel builds."""
 
-from . import debug, obj_io  # noqa: F401
+from . import checkpoint, debug, obj_io, profiling  # noqa: F401

@@ -1,11 +1,13 @@
-"""Golden-image comparison, Jacobian checks and a stdlib PNG reader.
+"""Golden-image comparison, Jacobian checks and a stdlib PNG reader and
+writer.
 
 Port of `pytorch_mesh_renderer_tpu/utils/test_utils.py:21-140`
 (`images_are_near`, `expect_image_file_and_render_are_near`: the same
 0.1%-of-pixels outlier budget at a 0.01 channel threshold; the analytical
 and central-difference Jacobians and their outlier comparator). PNGs are read
-with `read_png`, a reader built on zlib and struct alone, so golden images
-can be checked where imageio is not installed. The soft kernels' scenes and
+with `read_png` and written with `write_png`, built on zlib and struct
+alone, so golden images can be checked and renders saved where imageio is
+not installed. The soft kernels' scenes and
 their gates against the plain versions (`soft_scene`,
 `compare_soft_forward`, `compare_soft_backward`) serve chip_smoke.py and
 the card tests alike.
@@ -94,6 +96,35 @@ def read_png(path: str) -> np.ndarray:
     raw = zlib.decompress(b"".join(idat))
     pixels = _unfilter(raw, height, width * channels, channels)
     return np.frombuffer(pixels, np.uint8).reshape(height, width, channels)
+
+
+def write_png(path: str, image) -> None:
+    """Write an [H, W] or [H, W, C] uint8 image (C = 1 gray, 2 gray+alpha,
+    3 RGB, 4 RGBA) as an 8-bit, non-interlaced PNG, every row unfiltered."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, not {image.dtype}")
+    if image.ndim == 2:
+        image = image[..., None]
+    color = {c: kind for kind, c in _CHANNELS.items()}.get(
+        image.shape[-1] if image.ndim == 3 else None)
+    if color is None:
+        raise ValueError(f"write_png takes [H, W] or [H, W, 1-4] pixels, "
+                         f"not {image.shape}")
+    height, width, _ = image.shape
+    rows = np.zeros((height, 1 + image[0].size), np.uint8)  # filter 0
+    rows[:, 1:] = image.reshape(height, -1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+                                             color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
 
 
 def images_are_near(baseline_image, result_image,

@@ -992,6 +992,24 @@ def test_a_step_that_cannot_be_captured_raises(dev):
         step(None)
 
 
+@pytest.mark.parametrize("check", ["debug_tensor", "debug_warn_if",
+                                   "debug_check_finite"])
+def test_debug_checks_refuse_a_captured_step(dev, check):
+    """The host-side checks raise inside a capture; they never skip."""
+    from pytorch_mesh_renderer_tpu_torch.utils import debug
+
+    param = torch.zeros(3, device=dev, requires_grad=True)
+
+    def checked(params, batch):
+        getattr(debug, check)(params[0], "in the step")
+        return (params[0] ** 2).sum()
+
+    step = parallel.make_train_step(
+        checked, torch.optim.Adam([param], lr=0.1, capturable=True))
+    with pytest.raises(RuntimeError, match="CUDA-graph capture"):
+        step(None)
+
+
 def test_a_replay_keeps_its_constants_after_the_cache_lets_them_go(dev):
     """A captured step reads the tensor that `capture.constant` made for an
     array; the step holds it, so replays stay right after 300 other
@@ -1049,3 +1067,71 @@ def test_a_schedule_needs_a_tensor_learning_rate(dev):
         assert captured == (step.graph is not None)
         runs.append((torch.stack(run_losses), param.detach()))
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-6, atol=0)
+
+
+def test_examples_run_through_the_kernels(dev, tmp_path):
+    """The flagship fit (20 epochs at 64x64) and the cube rotation (5
+    steps) with `--device cuda`: finite results, and each launched its
+    kernels (K5/K6; K1/K2)."""
+    from pytorch_mesh_renderer_tpu_torch.examples import (
+        fit_shape_multiview, optimize_cube_rotation)
+
+    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+    fit = fit_shape_multiview.main([
+        "--epochs", "20", "--size", "64", "--resolution", "12",
+        "--preview-every", "10", "--out-prefix", str(tmp_path / "fit"),
+        "--device", "cuda"])
+    assert sc.SIL_FWD_LAUNCHES > 0 and sc.SIL_BWD_LAUNCHES > 0
+    assert fit["targets_from_file"]
+    assert [p["epoch"] for p in fit["previews"]] == [0, 10, 19]
+    assert np.isfinite(fit["vertices"]).all()
+    assert (tmp_path / "fit_final.obj").exists()
+
+    rc.LAUNCHES = rc.BWD_LAUNCHES = 0
+    cube = optimize_cube_rotation.main([
+        "--steps", "5", "--size", "64",
+        "--out-video", str(tmp_path / "cube.mp4"),
+        "--out-plot", str(tmp_path / "cube.png"), "--device", "cuda"])
+    assert rc.LAUNCHES > 0 and rc.BWD_LAUNCHES > 0
+    assert np.isfinite(cube["losses"]).all() and len(cube["losses"]) == 5
+
+
+def test_fit_checkpoint_moves_between_cpu_and_card(dev, tmp_path):
+    """A checkpoint saved on the CPU (Adam not capturable) resumes on the
+    card through the captured loop, and the card's (capturable) resumes
+    on the CPU: each invocation runs its epochs from the saved step."""
+    from pytorch_mesh_renderer_tpu_torch.examples import fit_shape_multiview
+
+    def fit(epochs, device):
+        return fit_shape_multiview.main([
+            "--epochs", str(epochs), "--size", "32", "--resolution", "8",
+            "--scan-chunk", "2", "--checkpoint", str(tmp_path / "fit.ckpt"),
+            "--out-prefix", str(tmp_path / device), "--device", device])
+
+    fit(2, "cpu")
+    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+    on_card = fit(4, "cuda")
+    assert sc.SIL_FWD_LAUNCHES > 0 and sc.SIL_BWD_LAUNCHES > 0
+    back = fit(6, "cpu")
+    for result in (on_card, back):
+        assert len(result["losses"]) == 2
+        assert np.isfinite(result["losses"]).all()
+        assert np.isfinite(result["vertices"]).all()
+    assert [p["epoch"] for p in back["previews"]] == [5]
+
+
+def test_pixel_centers_on_the_card_are_ieee_quotients(dev):
+    """On CUDA a division by a Python number multiplies by its reciprocal;
+    the plain soft version's pixel centres, made on the card, must still
+    be the float32 IEEE quotients its kernels compute."""
+    f = np.float32
+    for width, height, row_offset, full_height in [
+            (128, 128, 0, 128), (100, 100, 0, 100), (640, 17, 231, 480)]:
+        px, py = sc.pixel_centers(width, height, row_offset, full_height, dev)
+        cols = np.arange(width, dtype=f)
+        rows = np.arange(height, dtype=f) + f(row_offset)
+        np.testing.assert_array_equal(
+            px.cpu().numpy(), f(2.0) * (cols + f(0.5)) / f(width) - f(1.0))
+        np.testing.assert_array_equal(
+            py.cpu().numpy(),
+            f(-2.0) * (rows + f(0.5)) / f(full_height) + f(1.0))

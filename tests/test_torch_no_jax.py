@@ -1,11 +1,13 @@
 """The PyTorch port runs where JAX is absent.
 
 The machine with the card has no JAX, so the port must import neither jax
-nor the JAX package (whose __init__ imports jax). A fresh interpreter with
-`sys.modules["jax"] = None` makes any such import fail; in it, the port
-must import, render a cube on the CPU with the hard and the soft renderer,
-take their gradients, run the microbenchmarks' plain versions, a training
-loop and the bench.
+nor the JAX package (whose __init__ imports jax), and it has no optax,
+imageio or matplotlib, which the JAX examples use. A fresh interpreter with
+`sys.modules[name] = None` for each makes any such import fail; in it, the
+port must import (its checkpoint, native-parser and example modules too),
+render a cube on the CPU with the hard and the soft renderer, take their
+gradients, run the microbenchmarks' plain versions, a training loop, the
+bench and an example CLI.
 """
 
 import os
@@ -16,7 +18,9 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+# Any import of these now raises ImportError.
+for blocked in ("jax", "optax", "imageio", "matplotlib"):
+    sys.modules[blocked] = None
 
 import torch
 import pytorch_mesh_renderer_tpu_torch as pmt
@@ -24,7 +28,11 @@ from pytorch_mesh_renderer_tpu_torch.ops import (  # noqa: F401
     losses, rasterize_barycentric_cuda, rasterize_cuda, soft_rasterize,
     soft_rasterize_cuda)
 from pytorch_mesh_renderer_tpu_torch.utils import (  # noqa: F401
-    capture, convert, cost, kernels, profiling, scenes, test_utils)
+    capture, checkpoint, convert, cost, device, fit_spread, kernels, native,
+    profiling, scenes, test_utils)
+from pytorch_mesh_renderer_tpu_torch.examples import (  # noqa: F401
+    common, fit_shape_multiview, optimize_camera_pose, optimize_cube_rotation,
+    optimize_teapot_rotation, render_teapot_hard, render_teapot_soft)
 from pytorch_mesh_renderer_tpu_torch import bench, parallel
 from pytorch_mesh_renderer_tpu_torch.microbench import (
     mxu_edge, mxu_full, patch_scatter)
@@ -73,6 +81,12 @@ loop = parallel.make_train_loop(lambda params, b: ((params[0] - b) ** 2).sum(),
 assert loop(torch.ones(3)).shape == (2,) and float(p[0]) > 0
 assert bench.main(["--pose", "--steps", "2", "--size", "16",
                    "--device", "cpu"])[0]["value"] > 0
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    fit = fit_shape_multiview.main([
+        "--epochs", "2", "--size", "16", "--resolution", "8",
+        "--device", "cpu", "--out-prefix", os.path.join(tmp, "fit")])
+    assert fit["targets_from_file"] and len(fit["losses"]) == 2
 leaked = sorted(m for m in sys.modules
                 if m == "pytorch_mesh_renderer_tpu"
                 or m.startswith("pytorch_mesh_renderer_tpu."))

@@ -373,3 +373,28 @@ def test_config_and_argument_checks():
     forced = _port(t, tris, config=config_lib.SoftRasterizerConfig(
         backend="torch", triangle_chunk=1))
     torch.testing.assert_close(forced, _port(t, tris), atol=1e-6, rtol=1e-5)
+
+
+def _numpy_pixel_centers(width, height, row_offset, full_height):
+    """The kernels' pixel centres: float32 IEEE operations, in order."""
+    f = np.float32
+    cols = np.arange(width, dtype=f)
+    rows = np.arange(height, dtype=f) + f(row_offset)
+    return (f(2.0) * (cols + f(0.5)) / f(width) - f(1.0),
+            f(-2.0) * (rows + f(0.5)) / f(full_height) + f(1.0))
+
+
+@pytest.mark.parametrize("width,height,row_offset,full_height", [
+    (128, 128, 0, 128), (100, 100, 0, 100), (45, 31, 0, 31),
+    (640, 17, 231, 480), (333, 7, 5, 29)])
+def test_pixel_centers_are_the_kernels_bit_for_bit(width, height, row_offset,
+                                                   full_height):
+    """The plain version's pixel centres, computed on the device (so that
+    a captured step can render through it), equal the float32 IEEE
+    quotients the kernels compute."""
+    px, py = sc.pixel_centers(width, height, row_offset, full_height, "cpu")
+    want_x, want_y = _numpy_pixel_centers(width, height, row_offset,
+                                          full_height)
+    assert px.dtype == py.dtype == torch.float32
+    np.testing.assert_array_equal(px.numpy(), want_x)
+    np.testing.assert_array_equal(py.numpy(), want_y)
