@@ -142,18 +142,39 @@ The example CLIs follow:
                each optimization its first-step gradient (the angles, and
                the eye of the camera pose) through the kernels is held
                against the plain route's on its own render, start and
-               target (GRAD_RTOL hard, SOFT_GRAD_RTOL soft). The flagship
-               cow fit at docs/flagship/README.md's command (K5, K6) on the
+               target (GRAD_RTOL hard, SOFT_GRAD_RTOL soft). K6 called
+               twice on the teapot 256x256 batch 4, the cow fit's shape and
+               the pose_tie scene gives the same bits. The flagship cow
+               fit at docs/flagship/README.md's command (K5, K6) on the
                vendored targets, its epoch-99 and epoch-1999 lines within
                FLAGSHIP_BANDS of docs/flagship/trajectory.log, and its
                seconds per 1,000 epochs; 200 epochs with --checkpoint as
                two invocations of 100: the checkpoint holds the first's end
-               state, the second starts from it and saves Adam at step 200;
-               its loss and vertices are printed beside two invocations of
-               200, not gated (the kernels' atomics); the same on the plain
-               route with deterministic algorithms, where 100 + 100 epochs
-               equal 200 within RESUME_RTOL; the native OBJ parser's teapot
-               against the Python parser's, and both parsers' times.
+               state, the second starts from it and saves Adam at step 200,
+               and ends within RESUME_RTOL of two invocations of 200, which
+               must equal each other bit for bit (K6 and the vertex
+               scatters sum in a fixed order); the native OBJ parser's
+               teapot against the Python parser's, and both parsers' times.
+
+The sharded wrappers follow:
+
+ 16. shard   — `parallel.sharded_rasterize`, `sharded_soft_rasterize` and
+               `sharded_soft_silhouette` on meshes of 2x2, 4x1 and 1x4 cells
+               over the one card (SHARD_MESHES: the card repeated), each
+               cell launching the kernels (K1 and K2, K7 and K8, K5 and K6
+               once per cell, counted): the teapot 256x256 batch 4 rendered
+               and shaded as `mesh_renderer.render` does, the soft teapot
+               at 128x128 batch 4 and the cow fit's silhouettes (128x128, 4
+               views) equal the unsharded renders bit for bit, and their
+               vertex gradients (of mean(out^2)) lie within GRAD_RTOL (hard)
+               and TRAIN_RTOL (soft) of max |unsharded|, the silhouette's
+               also within SHARD_SIL_SCALED_ATOL after scaling; the fit step
+               through the 2x2 mesh, captured, equals its eager steps and
+               itself bit for bit; the flagship at its README command on
+               the 2x2 mesh lands in FLAGSHIP_BANDS at epoch 1999 and
+               repeats bit for bit; the captured and eager hard teapot step
+               and fit step by CUDA events, unsharded and on each mesh (the
+               sharded-vs-unsharded overhead on one card).
 
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -170,9 +191,6 @@ import re
 import sys
 import time
 
-# cuBLAS needs a fixed workspace for torch.use_deterministic_algorithms,
-# which phase 15's deterministic runs turn on; set before torch loads it.
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "pytorch_mesh_renderer_tpu_torch/csrc/"
@@ -230,28 +248,29 @@ FLAGSHIP_EPOCH_99 = {"loss": 0.05465, "iou": 0.7842}
 # Phase 15 holds the port's flagship run to trajectory.log's lines at
 # epochs 99 and 1999 (docs/flagship/trajectory.log:3, :41), a quality
 # reference (its seconds are a TPU's and are not quoted): (loss relative,
-# IoU absolute) bands. The fit is chaotic on the card: the backward's
-# atomics change the last bits of every gradient, Adam carries them, and
-# two runs of one command end apart (PERF.md §6). At epoch 99 the
-# card's runs lie around the log, within its +-2% / +-0.01; at epoch 1999
-# they land from -5.9% to +0.2% in loss and +0.001 to +0.021 in IoU, on
-# the kernels and on the plain route alike (`utils/fit_spread.py`, ten
-# and three runs; PERF.md §6), so the band there is one-sided: a run may
-# fit better than the TPU's did, not worse.
+# IoU absolute) bands. At epoch 99 the card's runs lie around the log,
+# within its +-2% / +-0.01; at epoch 1999 the port fits better than the
+# TPU's bf16 run did, on the kernels and on the plain route alike (-5.9%
+# to +0.2% in loss over runs whose gradients' last bits differed,
+# `utils/fit_spread.py`, PERF.md §6), so the band there is one-sided: a
+# run may fit better than the log, not worse.
 FLAGSHIP_LOG = {99: {"loss": 0.05465, "iou": 0.7842},
                 1999: {"loss": 0.05328, "iou": 0.7853}}
 FLAGSHIP_BANDS = {99: ((-0.02, 0.02), (-0.01, 0.01)),
                   1999: ((-0.10, 0.02), (-0.01, 0.03))}
 FLAGSHIP_ARGS = ["--size", "128", "--resolution", "24", "--scan-chunk", "100",
                  "--preview-every", "100"]
-# The resumed invocation's first loss against the loss at the saved state
-# (the Laplacian loss sums neighbours by atomics: last bits). Its later
-# losses are not gated against a straight run's: they differ by the chaos
-# above (PERF.md §6).
+# The resumed invocation's first loss against the loss at the saved state.
 RESUME_START_RTOL = 1e-6
-# 100 + 100 epochs through --checkpoint against 200 straight on the plain
-# route with deterministic algorithms: loss relative, vertices of max |v|.
+# 100 + 100 epochs through --checkpoint against 200 straight on the
+# kernels (K6 and the vertex scatters sum in a fixed order, so the fit
+# repeats): loss relative, vertices of max |v|.
 RESUME_RTOL = 1e-4
+# Phase 16's meshes over the one card, (data, space).
+SHARD_MESHES = ((2, 2), (4, 1), (1, 4))
+# The silhouette gradient, sharded vs unsharded, after scaling by max
+# |unsharded| (tests/test_parallel.py's gate).
+SHARD_SIL_SCALED_ATOL = 2e-4
 # load_obj calls timed per parser on the teapot.
 LOAD_OBJ_RUNS = 5
 
@@ -440,9 +459,8 @@ def fit_phase(dev, card):
     # take the loss and its gradient at the same offsets, and Adam steps
     # with the kernels' gradient. Two separate trajectories are compared
     # too, but not gated: Adam moves each offset by about lr * sign(g), so
-    # the atomics' last-bit noise in a gradient component near zero can
-    # flip a whole step of that offset, and the two runs drift apart by an
-    # amount that changes from run to run.
+    # the routes' last-bit differences in a gradient component near zero
+    # can flip a whole step of that offset, and the two runs drift apart.
     step_errors = []
     offsets = torch.zeros_like(verts0, requires_grad=True)
     opt = torch.optim.Adam([offsets], lr=1e-2)
@@ -1083,8 +1101,10 @@ def examples_phase(dev, card):
         optimize_cube_rotation, optimize_teapot_rotation, render_teapot_hard,
         render_teapot_soft)
     from pytorch_mesh_renderer_tpu_torch.ops import losses
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
     from pytorch_mesh_renderer_tpu_torch.utils import (checkpoint, native,
-                                                       obj_io, test_utils)
+                                                       obj_io, soft_work,
+                                                       test_utils)
 
     f32 = dict(dtype=torch.float32, device=dev)
     plain_hard = config_lib.HardRasterizerConfig(backend="torch")
@@ -1224,6 +1244,27 @@ def examples_phase(dev, card):
         optimization("optimize_camera_pose 320x240", optimize_camera_pose, [],
                      hard, converges=False)
 
+        # K6 sums in a fixed order: two calls give the same bits.
+        for scene in ("teapot 256", "fit 128", "pose_tie"):
+            if scene == "pose_tie":
+                tie = test_utils.soft_scene(scene, dev)
+                table, params, size = tie.table, tie.params, tie.height
+            else:
+                table, _, params = soft_work.scene_table(scene, dev)
+                size = int(scene.split()[-1])
+            alpha = sc.launch_sil_fwd(table, params, size, size, size)
+            d_alpha = test_utils.soft_cotangents(
+                table.shape[0], size, size, dev)[..., 3].contiguous()
+            calls = [sc.launch_sil_bwd(table, params, alpha, d_alpha, size)
+                     for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*calls))
+            log("examples", f"K6 twice on {scene} ({table.shape[0]} images, "
+                f"{table.shape[1]} triangles): dtable and dsigma bit for "
+                f"bit equal: {same} (gate)")
+            if not same:
+                raise AssertionError(f"examples: K6 differs between two "
+                                     f"calls on {scene}")
+
         # The flagship at docs/flagship/README.md's command.
         sil = ["soft_sil_fwd", "soft_sil_bwd"]
         fit, seconds = run("fit_shape_multiview 2000 epochs",
@@ -1253,17 +1294,16 @@ def examples_phase(dev, card):
             f"{seconds:.2f} s); {fit['steps_per_s']:.1f} steps/s after the "
             "first chunk, previews included")
 
-        # Resume: 100 + 100 epochs through --checkpoint, beside 200.
-        def fit_run(epochs, prefix, ckpt=None, config=None):
+        # Resume: 100 + 100 epochs through --checkpoint, beside 200, on
+        # the kernels; and two straight runs of 200.
+        def fit_run(epochs, prefix, ckpt=None):
             argv = ["--epochs", str(epochs), "--out-prefix",
                     os.path.join(tmp, prefix)] + FLAGSHIP_ARGS
             if ckpt:
                 argv += ["--checkpoint", ckpt]
             label = (f"fit_shape_multiview {epochs} epochs"
-                     + (" --checkpoint" if ckpt else "")
-                     + (" (plain route)" if config else ""))
-            return run(label, fit_shape_multiview, argv,
-                       [] if config else sil, config=config)[0]
+                     + (" --checkpoint" if ckpt else ""))
+            return run(label, fit_shape_multiview, argv, sil)[0]
 
         ckpt = os.path.join(tmp, "fit.ckpt")
         straight = fit_run(200, "straight")
@@ -1308,45 +1348,28 @@ def examples_phase(dev, card):
         scale = np.abs(straight["vertices"]).max()
         v_err = float(np.abs(resumed["vertices"]
                              - straight["vertices"]).max() / scale)
-        v_spread = float(np.abs(again["vertices"]
-                                - straight["vertices"]).max() / scale)
-        loss_spread = abs(again["previews"][-1]["loss"] - loss_a) / loss_a
-        log("examples", f"resume: the checkpoint holds the first "
-            f"invocation's end state (offsets bit for bit, Adam at step "
-            f"100); the second invocation's first loss is {start_err:.3g} "
-            f"relative off the saved state's (gate {RESUME_START_RTOL}), "
-            f"and it saves Adam at step 200. Not gated (the fit is chaotic "
-            f"on the card): at epoch 199 100 + 100 epochs give loss "
-            f"{loss_b:.6f}, 200 straight {loss_a:.6f} ({loss_err:.3g} "
-            f"relative), vertices {v_err:.3g} of max |v| apart; a second "
-            f"straight run ends {loss_spread:.3g} in loss and {v_spread:.3g} "
-            "of max |v| from the first")
-
-        # The same resume on the plain route with deterministic
-        # algorithms (its scatters in a fixed order): 100 + 100 epochs
-        # must equal 200 straight within RESUME_RTOL.
-        torch.use_deterministic_algorithms(True)
-        try:
-            plain_ckpt = os.path.join(tmp, "plain.ckpt")
-            plain_straight = fit_run(200, "plain_straight", config=plain_soft)
-            fit_run(100, "plain_resumed", plain_ckpt, plain_soft)
-            plain_resumed = fit_run(200, "plain_resumed", plain_ckpt,
-                                    plain_soft)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        loss_a = plain_straight["previews"][-1]["loss"]
-        loss_err = abs(plain_resumed["previews"][-1]["loss"] - loss_a) / loss_a
-        scale = np.abs(plain_straight["vertices"]).max()
-        v_err = float(np.abs(plain_resumed["vertices"]
-                             - plain_straight["vertices"]).max() / scale)
-        log("examples", f"resume on the plain route, deterministic: at epoch "
-            f"199 100 + 100 epochs give loss "
-            f"{plain_resumed['previews'][-1]['loss']:.6f}, 200 straight "
+        repeats = (again["losses"] == straight["losses"]
+                   and np.array_equal(again["vertices"],
+                                      straight["vertices"]))
+        resumed_equal = (np.array_equal(resumed["vertices"],
+                                        straight["vertices"])
+                         and resumed["losses"] == straight["losses"][100:])
+        log("examples", f"resume on the kernels: the checkpoint holds the "
+            f"first invocation's end state (offsets bit for bit, Adam at "
+            f"step 100); the second invocation's first loss is "
+            f"{start_err:.3g} relative off the saved state's (gate "
+            f"{RESUME_START_RTOL}), and it saves Adam at step 200; at epoch "
+            f"199 100 + 100 epochs give loss {loss_b:.6f}, 200 straight "
             f"{loss_a:.6f} ({loss_err:.3g} relative), vertices {v_err:.3g} "
-            f"of max |v| apart (gate {RESUME_RTOL} on both)")
+            f"of max |v| apart (gate {RESUME_RTOL} on both; bit for bit: "
+            f"{resumed_equal}); a second straight run of 200 epochs equals "
+            f"the first bit for bit: {repeats} (gate)")
         if not (loss_err <= RESUME_RTOL and v_err <= RESUME_RTOL):
-            raise AssertionError("examples: the plain route's resumed fit "
-                                 "is off its straight run")
+            raise AssertionError("examples: the resumed fit is off its "
+                                 "straight run")
+        if not repeats:
+            raise AssertionError("examples: two straight runs of the fit "
+                                 "differ")
 
     # The native OBJ parser on this host.
     if native.load_library() is None:
@@ -1375,6 +1398,211 @@ def examples_phase(dev, card):
         f"Python parser's; load_obj {native_s * 1e3:.3f} ms native, "
         f"{python_s * 1e3:.3f} ms Python (host, median of {LOAD_OBJ_RUNS}); "
         f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def shard_phase(dev, card, teapot):
+    """Phase 16: the sharded wrappers (`parallel.sharded_*`) on meshes over
+    the one card (the card repeated: SHARD_MESHES), each cell launching the
+    kernels (see the module docstring). Returns the phase's launch
+    counts."""
+    import contextlib
+    import functools
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import parallel
+    from pytorch_mesh_renderer_tpu_torch.examples import fit_shape_multiview
+    from pytorch_mesh_renderer_tpu_torch.models import (mesh_renderer,
+                                                        soft_mesh_renderer)
+
+    t_phase = time.perf_counter()
+    meshes = {f"{d}x{s}": parallel.make_mesh(d, s, devices=[dev] * (d * s))
+              for d, s in SHARD_MESHES}
+    fit_args = fit_shape_multiview.parse_args(FLAGSHIP_ARGS)
+
+    def through(mesh, module, name, wrapper):
+        """A context in which `module.name` renders through `wrapper` on
+        `mesh` (nothing changes without a mesh)."""
+        if mesh is None:
+            return contextlib.nullcontext()
+        return mock.patch.object(module, name,
+                                 functools.partial(wrapper, mesh))
+
+    def hard_render(vertices, mesh=None):
+        """mesh_renderer.render on the teapot 256^2 b4, its rasterizer
+        sharded_rasterize on `mesh`: the render's shading runs on the
+        assembled image."""
+        rest = [teapot[k] for k in ("triangles", "normals", "diffuse", "eye",
+                                    "center", "up", "lights", "intensities")]
+        with through(mesh, mesh_renderer, "rasterize",
+                     parallel.sharded_rasterize):
+            return mesh_renderer.render(vertices, *rest, TEAPOT_SIZE,
+                                        TEAPOT_SIZE)
+
+    soft_tris = teapot["triangles"].flip(1).contiguous()  # CCW
+
+    def soft_render(vertices, mesh=None):
+        """soft_mesh_renderer.render on the teapot 128^2 b4 (bench --soft),
+        its rasterizer sharded_soft_rasterize on `mesh`."""
+        with through(mesh, soft_mesh_renderer, "rasterize",
+                     parallel.sharded_soft_rasterize):
+            return soft_mesh_renderer.render(
+                vertices, soft_tris, teapot["diffuse"], teapot["eye"],
+                teapot["center"], teapot["up"], teapot["lights"],
+                teapot["intensities"][..., 0].contiguous(), 128, 128)
+
+    problems = {None: fit_shape_multiview.Problem(fit_args, dev)}
+    problems.update({name: fit_shape_multiview.Problem(fit_args, dev,
+                                                       mesh=mesh)
+                     for name, mesh in meshes.items()})
+    fit_start = problems[None].verts0
+
+    def sil_render(vertices, name=None):
+        """The cow fit's silhouettes (128^2 x 4 views),
+        sharded_soft_silhouette on mesh `name`."""
+        return problems[name].render_alphas(vertices)
+
+    def output_and_grad(render, start, mesh):
+        v = start.detach().clone().requires_grad_(True)
+        out = render(v, mesh)
+        (grad,) = torch.autograd.grad(torch.mean(out ** 2), v)
+        torch.cuda.synchronize()
+        return out.detach(), grad
+
+    reset_hard_launch_counts()
+    reset_soft_launch_counts()
+    cases = (("hard", hard_render, teapot["vertices"], GRAD_RTOL,
+              ("rasterize_fused_fwd", "rasterize_fused_bwd")),
+             ("soft", soft_render, teapot["vertices"], TRAIN_RTOL,
+              ("soft_fwd", "soft_bwd")),
+             ("silhouette", sil_render, fit_start, TRAIN_RTOL,
+              ("soft_sil_fwd", "soft_sil_bwd")))
+    for label, render, start, rtol, kernels in cases:
+        want, want_grad = output_and_grad(render, start, None)
+        scale = float(want_grad.abs().max())
+        for name, mesh in meshes.items():
+            before = {**hard_launch_counts(), **soft_launch_counts()}
+            got, got_grad = output_and_grad(
+                render, start, mesh if label != "silhouette" else name)
+            after = {**hard_launch_counts(), **soft_launch_counts()}
+            cells = mesh.size
+            launched = {k: after[k] - before[k] for k in kernels}
+            err = float((got_grad - want_grad).abs().max())
+            scaled = err / (scale + 1e-6)
+            log("shard", f"{label} {name}: output bit for bit equal to the "
+                f"unsharded: {torch.equal(got, want)}; gradient max abs "
+                f"{err:.3g} of max |unsharded| {scale:.4g} (gate {rtol}"
+                + (f"; scaled {scaled:.3g}, gate {SHARD_SIL_SCALED_ATOL}"
+                   if label == "silhouette" else "")
+                + f"); launches {launched} (want {cells} each)")
+            if not (torch.equal(got, want) and err <= rtol * scale
+                    and all(n == cells for n in launched.values())
+                    and scaled <= SHARD_SIL_SCALED_ATOL):
+                raise AssertionError(f"shard: {label} on {name} differs from "
+                                     "the unsharded render")
+
+    # Captured steps: the fit step on the 2x2 mesh, captured, equals its
+    # eager steps and itself bit for bit.
+    def fit_steps(name, captured, steps=6):
+        problem = problems[name]
+        offsets = torch.zeros_like(problem.verts0, requires_grad=True)
+        step = parallel.make_train_step(problem.loss, torch.optim.Adam(
+            [offsets], lr=fit_args.lr, capturable=True))
+        call = step if captured else step.run_eager
+        losses = torch.stack([call(problem.targets) for _ in range(steps)])
+        torch.cuda.synchronize()
+        return losses, offsets.detach()
+
+    runs = [fit_steps("2x2", True), fit_steps("2x2", True),
+            fit_steps("2x2", False)]
+    same = [torch.equal(runs[0][0], r[0]) and torch.equal(runs[0][1], r[1])
+            for r in runs[1:]]
+    log("shard", f"captured fit step on the 2x2 mesh, 6 steps: two captured "
+        f"runs bit for bit equal: {same[0]}; captured == eager bit for bit: "
+        f"{same[1]} (gates)")
+    if not all(same):
+        raise AssertionError("shard: the captured sharded fit step does not "
+                             "repeat or differs from its eager steps")
+
+    # The flagship at its README command on the 2x2 mesh, twice.
+    with tempfile.TemporaryDirectory() as tmp:
+        fits = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            fits.append(fit_shape_multiview.main(
+                ["--epochs", "2000", "--out-prefix",
+                 os.path.join(tmp, f"cow{i}")] + FLAGSHIP_ARGS,
+                mesh=meshes["2x2"]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        got = {p["epoch"]: p for p in fits[0]["previews"]}[1999]
+        want = FLAGSHIP_LOG[1999]
+        loss_err = (got["loss"] - want["loss"]) / want["loss"]
+        iou_err = got["iou"] - want["iou"]
+        (loss_lo, loss_hi), (iou_lo, iou_hi) = FLAGSHIP_BANDS[1999]
+        repeats = (fits[0]["losses"] == fits[1]["losses"]
+                   and np.array_equal(fits[0]["vertices"],
+                                      fits[1]["vertices"]))
+        log("shard", f"{card} | flagship on the 2x2 mesh: epoch 1999 loss "
+            f"{got['loss']:.5f} IoU {got['iou']:.4f} ({loss_err:+.4f} "
+            f"relative, IoU {iou_err:+.4f} off trajectory.log; bands "
+            f"{loss_lo:+} to {loss_hi:+}, {iou_lo:+} to {iou_hi:+}); two runs "
+            f"bit for bit equal: {repeats}; {seconds / 2:.3f} s per 1,000 "
+            f"epochs, previews included")
+        if not (loss_lo <= loss_err <= loss_hi and iou_lo <= iou_err <= iou_hi
+                and repeats):
+            raise AssertionError("shard: the flagship on the 2x2 mesh is "
+                                 "off trajectory.log or does not repeat")
+    torch.cuda.synchronize()
+    launches = {**hard_launch_counts(), **soft_launch_counts()}
+    for name in ("rasterize_fused_fwd", "rasterize_fused_bwd", "soft_fwd",
+                 "soft_bwd", "soft_sil_fwd", "soft_sil_bwd"):
+        if launches[name] < 1:
+            raise AssertionError(f"shard phase: {name} was not launched")
+
+    # The sharded-vs-unsharded overhead on one card: the captured hard
+    # teapot step (SGD at learning rate 0, as the bench's) and the fit
+    # step (Adam), by CUDA events.
+    def hard_loss(mesh):
+        def loss_fn(params, batch):
+            return torch.mean(hard_render(params[0], mesh)[..., :3] ** 2)
+        return loss_fn
+
+    def step_ms(loss_fn, start, batch, adam):
+        param = start.detach().clone().requires_grad_(True)
+        optimizer = (torch.optim.Adam([param], lr=fit_args.lr,
+                                      capturable=True) if adam
+                     else torch.optim.SGD([param], lr=0.0))
+        step = parallel.make_train_step(loss_fn, optimizer)
+        step(batch)  # the warm-up and the capture
+        return (cuda_time_ms(lambda: step(batch), iters=50),
+                cuda_time_ms(lambda: step.run_eager(batch), iters=10))
+
+    times = {}
+    for name in (None, "2x2", "4x1", "1x4"):
+        mesh = meshes.get(name)
+        times[("hard", name)] = step_ms(hard_loss(mesh), teapot["vertices"],
+                                        None, False)
+        times[("fit", name)] = step_ms(problems[name].loss,
+                                       torch.zeros_like(fit_start),
+                                       problems[name].targets, True)
+    for kind in ("hard", "fit"):
+        base = times[(kind, None)]
+        what = ("hard step, teapot 256^2 b4" if kind == "hard"
+                else "fit step, cow 128^2 x 4 views")
+        log("shard", f"{card} | {what}: captured {base[0]:.4f} ms, eager "
+            f"{base[1]:.4f} ms unsharded; " + "; ".join(
+                f"{name} captured {times[(kind, name)][0]:.4f} ms "
+                f"({times[(kind, name)][0] / base[0]:.2f}x), eager "
+                f"{times[(kind, name)][1]:.4f} ms "
+                f"({times[(kind, name)][1] / base[1]:.2f}x)"
+                for name in meshes))
+    log("shard", f"launches {launches}; phase 16 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def loop_phase(dev, card, teapot):
@@ -2165,6 +2393,9 @@ def main():
 
     # 15. The example CLIs, the flagship fit and the native OBJ parser.
     examples_phase(dev, card)
+
+    # 16. The sharded wrappers on meshes over the card.
+    shard_phase(dev, card, teapot)
     log("examples", f"the script took {time.perf_counter() - started:.1f} s")
 
     print(card, flush=True)

@@ -15,8 +15,9 @@ renderer, forward and backward:
     alpha = pmt.soft_mesh_renderer.render_silhouette(vertices, ...)
 
 A CPU tensor renders through the plain PyTorch versions of the kernels; a
-CUDA tensor renders through the kernels. `parallel` holds the training
-step and loop, `utils` the OBJ, checkpoint, debug and profiling helpers,
+CUDA tensor renders through the kernels. `parallel` holds the device
+meshes, the sharded renderers and the training step and loop, `utils`
+the OBJ, checkpoint, debug and profiling helpers,
 and `examples` the six example CLIs (`python -m
 pytorch_mesh_renderer_tpu_torch.examples.<name>`).
 """

@@ -43,7 +43,10 @@
 //   bbox touches) items are cut into one equal run per warp, one pixel per
 //   lane, and each triangle's column sums are reduced over the warp once.
 //   A busy block's work so spreads over kSplit x 8 warps instead of
-//   queueing on 8; their sums need no order.
+//   queueing on 8. K8 adds its sums with atomics, in no order; K6 writes
+//   one partial per (image, kept row, block) and adds them in block order
+//   in a second pass, which finds them with the same `block_keeps` at
+//   `block_extent_at`, so its gradients repeat bit for bit.
 // - K7 and K5 (soft_fwd.cu, soft_sil_fwd.cu; one body in
 //   soft_cluster_fwd.cuh, with and without shading): the fold of each
 //   pixel is ordered (the online softmax, and K5's alpha bit-identical to
@@ -97,21 +100,31 @@ __device__ __forceinline__ float pixel_y(int y, float row_off,
          1.0f;
 }
 
-// The pixel-centre extent of this thread's block, clipped to the image.
+// The pixel-centre extent of a pixel block, clipped to the image.
 struct BlockExtent {
   float px_lo, px_hi, py_lo, py_hi;
 };
 
-__device__ __forceinline__ BlockExtent block_extent(int width, int height,
-                                                    float row_off,
-                                                    int full_height) {
-  const int x0 = blockIdx.x * kSoftBlockX;
-  const int y0 = blockIdx.y * kSoftBlockY;
+// Pixel block (bx, by)'s.
+__device__ __forceinline__ BlockExtent block_extent_at(int bx, int by,
+                                                       int width, int height,
+                                                       float row_off,
+                                                       int full_height) {
+  const int x0 = bx * kSoftBlockX;
+  const int y0 = by * kSoftBlockY;
   // py falls as the row grows: the top row has the largest py.
   return BlockExtent{
       pixel_x(x0, width), pixel_x(min(x0 + kSoftBlockX, width) - 1, width),
       pixel_y(min(y0 + kSoftBlockY, height) - 1, row_off, full_height),
       pixel_y(y0, row_off, full_height)};
+}
+
+// This thread's block's.
+__device__ __forceinline__ BlockExtent block_extent(int width, int height,
+                                                    float row_off,
+                                                    int full_height) {
+  return block_extent_at(blockIdx.x, blockIdx.y, width, height, row_off,
+                         full_height);
 }
 
 // Whether table row r can hold a valid pair for a pixel of the block: it

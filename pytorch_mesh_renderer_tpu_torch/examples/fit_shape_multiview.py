@@ -9,10 +9,14 @@ epochs and a `--checkpoint` to save and resume. The four views render as
 one batch through the silhouette path (K5 forward, K6 backward).
 `--scan-chunk N` runs N steps per call of `parallel.make_train_loop` (N
 replays of the captured step on the card) and previews between chunks.
+`--mesh DATA,SPACE` renders through `parallel.sharded_soft_silhouette` on
+a (data, space) mesh of the devices of `--device`: views over "data",
+pixel rows over "space"; its output equals the unsharded render bit for
+bit.
 
     python -m pytorch_mesh_renderer_tpu_torch.examples.fit_shape_multiview \
         --epochs 2000 --size 128 --resolution 24 --scan-chunk 100 \
-        --preview-every 100 [--device cpu]
+        --preview-every 100 [--device cpu] [--mesh 2,2]
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import torch
 
 from .. import parallel
 from ..models import shapes, soft_mesh_renderer
-from ..ops import losses
+from ..ops import camera, losses
 from ..ops import mesh as mesh_ops
+from ..parallel.mesh import local_device
 from ..utils import checkpoint, obj_io
 from . import common
 
@@ -86,34 +91,38 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="path to save/resume optimization state")
     parser.add_argument("--mesh", type=str, default=None, metavar="DATA,SPACE",
-                        help="not ported yet: sharding over several cards "
-                             "waits for the port of parallel/mesh.py; giving "
-                             "it is an error")
+                        help="shard over a (data, space) device mesh, e.g. "
+                             "'4,2': views over 'data', pixel rows over "
+                             "'space' (views %% data == 0, size %% space == 0)")
     parser.add_argument("--scan-chunk", type=int, default=None,
                         help="run N optimizer steps per call of "
                              "parallel.make_train_loop (N replays of the "
                              "captured step on the card); previews and "
                              "checkpoints happen between chunks")
     common.add_device_argument(parser)
-    args = parser.parse_args(argv)
-    if args.mesh:
-        parser.error("--mesh is not ported yet (sharding waits for the port "
-                     "of parallel/mesh.py)")
-    return args
+    return parser.parse_args(argv)
 
 
 class Problem:
     """The fit's sphere, cameras, targets and loss at `args`' settings on
     `device`, rendered through the soft rasterizer `config` (None: the
-    default, by device). Host-side setup (`compute_edges_list`) happens
-    here, outside the captured step."""
+    default, by device), and through `parallel.sharded_soft_silhouette`
+    on `mesh` when one is given (its first device is `device`). Host-side
+    setup (`compute_edges_list`, the mesh's camera matrices) happens here,
+    outside the captured step."""
 
-    def __init__(self, args, device, config=None):
-        self.args, self.config = args, config
+    def __init__(self, args, device, config=None, mesh=None):
+        self.args, self.config, self.mesh = args, config, mesh
         verts0, tris, _ = shapes.sphere(0.5, resolution=args.resolution)
         self.verts0, self.tris = verts0.to(device), tris.to(device)
         self.edges = mesh_ops.compute_edges_list(self.tris)
         self.cameras = cameras(device)
+        if mesh is not None:  # render_silhouette's matrices, made once
+            f32 = dict(dtype=torch.float32, device=device)
+            self.camera_matrices = camera.clip_space_transforms(
+                *self.cameras, torch.full([N_VIEWS], 40.0, **f32),
+                torch.full([N_VIEWS], 0.01, **f32),
+                torch.full([N_VIEWS], 10.0, **f32), args.size, args.size)
         targets, self.from_file = load_targets(args.size)
         if self.from_file:
             self.targets = targets.to(device)
@@ -126,9 +135,16 @@ class Problem:
 
     def render_alphas(self, vertices):
         # The silhouette path: the full render's alpha channel, bit for bit.
+        views = vertices[None].expand(N_VIEWS, -1, -1)
+        if self.mesh is not None:
+            # Views shard over "data", pixel rows over "space"; the output
+            # equals the unsharded render bit for bit.
+            return parallel.sharded_soft_silhouette(
+                self.mesh, views, self.tris, self.camera_matrices,
+                self.args.size, self.args.size, sigma_val=self.args.sigma,
+                config=self.config)
         return soft_mesh_renderer.render_silhouette(
-            vertices[None].expand(N_VIEWS, -1, -1), self.tris,
-            *self.cameras, self.args.size, self.args.size,
+            views, self.tris, *self.cameras, self.args.size, self.args.size,
             sigma_val=self.args.sigma, config=self.config)
 
     def loss_terms(self, offsets, target_alphas):
@@ -148,17 +164,29 @@ class Problem:
                 + self.args.laplacian_weight * lap)
 
 
-def main(argv=None, config=None):
+def main(argv=None, config=None, mesh=None):
     """Runs the fit; `config` is the soft rasterizer's (None: the default,
-    by device; a plain-route config runs the reference on the card)."""
+    by device; a plain-route config runs the reference on the card), and
+    `mesh` a `parallel.Mesh` that takes the place of `--mesh` (one that
+    repeats a device, which the flag's default device list never does)."""
     args = parse_args(argv)
     device = common.resolve_device(args.device)
-    problem = Problem(args, device, config)
+    if mesh is None and args.mesh:
+        data, space = (int(x) for x in args.mesh.split(","))
+        mesh = parallel.make_mesh(
+            data=data, space=space,
+            devices=None if device.type == "cuda" else [device])
+    if mesh is not None:
+        device = local_device(mesh.devices.flat[0])
+    problem = Problem(args, device, config, mesh)
     verts0, tris, targets = problem.verts0, problem.tris, problem.targets
     render_alphas, loss_terms = problem.render_alphas, problem.loss_terms
     loss_fn = problem.loss
 
     offsets = torch.zeros_like(verts0, requires_grad=True)
+    if mesh is not None:
+        (offsets,) = parallel.replicate(mesh, [offsets])
+        targets = parallel.shard_batch(mesh, targets)
     optimizer = torch.optim.Adam([offsets], lr=args.lr,
                                  capturable=device.type == "cuda")
     start = 0

@@ -24,6 +24,7 @@ from torch import nn
 from .. import config as config_lib
 from ..ops import camera
 from ..ops.math_utils import normalize
+from ..ops.mesh import int32_index
 from ..ops.rasterize import rasterize
 from ..ops.shading import phong_shader, tone_mapper  # re-export: tone_mapper
 from ..utils.capture import constant
@@ -63,7 +64,7 @@ def _vertices_and_triangles(vertices, triangles):
         raise ValueError(
             f"triangles lie on {triangles.device}, but vertices lie on "
             f"{device}; move them explicitly.")
-    triangles = triangles.to(torch.int32)
+    triangles = int32_index(triangles)
     if triangles.dim() != 2 or triangles.shape[-1] != 3:
         raise ValueError("Triangles must have shape [triangle_count, 3].")
     return vertices, triangles

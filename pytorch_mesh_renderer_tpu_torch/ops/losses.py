@@ -3,13 +3,18 @@
 Port of `pytorch_mesh_renderer_tpu/ops/losses.py:20-78`: the shape-fitting
 regularizers of the multi-view silhouette fit (mean edge length and
 uniform-weight Laplacian smoothing) and the image losses of the
-optimization loops. The Laplacian's neighbour sum and degree are two
-`index_add_` scatters, as they are two scatter-adds in the JAX package.
+optimization loops. The Laplacian's neighbour sum is one scatter-add over
+the edges' two ends, as it is two scatter-adds in the JAX package; here it
+and the gathers of both losses go through `ops/mesh.py`'s deterministic
+`segment_sum` and `gather`, whose plan comes from the edges tensor, so a
+fit's gradient has the same bits on every run.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .mesh import gather, segment_sum, vertex_plan
 
 
 def edge_loss(vertices: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -19,8 +24,8 @@ def edge_loss(vertices: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
       vertices: [V, 3] f32.
       edges: [E, 2] int unique undirected edges (mesh.compute_edges_list).
     """
-    edges = edges.long()
-    d = vertices[edges[:, 0]] - vertices[edges[:, 1]]
+    ends = gather(vertices, edges)  # [E, 2, 3]
+    d = ends[:, 0] - ends[:, 1]
     return torch.mean(torch.sqrt(torch.sum(d * d, dim=1)))
 
 
@@ -36,16 +41,11 @@ def laplacian_smoothing_loss(vertices: torch.Tensor,
       edges: [E, 2] int unique undirected edges.
     """
     n_vertices = vertices.shape[0]
-    edges = edges.long()
-    e0, e1 = edges[:, 0], edges[:, 1]
-    neighbor_sum = torch.zeros_like(vertices)
-    neighbor_sum.index_add_(0, e0, vertices[e1])
-    neighbor_sum.index_add_(0, e1, vertices[e0])
-    ones = torch.ones(e0.shape, dtype=vertices.dtype, device=vertices.device)
-    degree = torch.zeros(n_vertices, dtype=vertices.dtype,
-                         device=vertices.device)
-    degree.index_add_(0, e0, ones)
-    degree.index_add_(0, e1, ones)
+    # Each end of an edge takes the other end: position (i, 0) of the
+    # edges sums vertex edges[i, 1], and (i, 1) sums edges[i, 0].
+    neighbor_sum = segment_sum(gather(vertices, edges).flip(1), edges,
+                               n_vertices)
+    degree = vertex_plan(edges, n_vertices).degree.to(vertices.dtype)
     inv_degree = torch.where(degree > 0.0,
                              1.0 / torch.clamp(degree, min=1.0), 0.0)
     lap = neighbor_sum * inv_degree[:, None] - vertices

@@ -19,6 +19,7 @@ import torch
 from .. import config as config_lib
 from ..utils.capture import constant
 from . import camera
+from .mesh import int32_index
 from .rasterize_barycentric_cuda import (rasterize_barycentric_cuda,
                                          rasterize_barycentric_torch)
 from .rasterize_cuda import (rasterize_interpolate_cuda,
@@ -56,7 +57,7 @@ def rasterize_barycentric(clip_space_vertices, triangles, image_width,
     if clip_space_vertices.dim() != 2:
         raise ValueError("clip_space_vertices must have shape [V, 4].")
     cfg = config or config_lib.HARD_CONFIG
-    triangles = triangles.to(torch.int32)
+    triangles = int32_index(triangles)
     row_offset = row_offset or 0
     if select_backend(cfg, clip_space_vertices.device) == "cuda":
         ids, bc, z = rasterize_barycentric_cuda(
@@ -117,7 +118,7 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
     device = clip_space_vertices.device
     row_offset = row_offset or 0
     attributes = attributes.to(torch.float32)
-    triangles = triangles.to(torch.int32)
+    triangles = int32_index(triangles)
     if select_backend(cfg, device) == "cuda":
         _, bc, attribute_images = rasterize_interpolate_cuda(
             clip_space_vertices, attributes, triangles, image_width,

@@ -47,6 +47,7 @@ from torch.autograd.function import once_differentiable
 from ..utils import kernels
 from .barycentric import (DEGENERATE_BARYCENTRIC_CUTOFF, pixel_is_inside,
                           unnormalized_matrix_inverse)
+from .mesh import vertex_plan
 
 # Packed triangle row: 9 edge coefficients (a, b, c per edge), 3 clip z,
 # 3 clip w, liveness. 16 f32 = 64 bytes, four 16-byte loads in the kernel.
@@ -371,20 +372,20 @@ def scatter_triangle_gradients(dtab, triangles, vertex_count):
 
     The T-sized scatter of `_scatter_corner_grads` and the attribute
     scatter (`rasterize_pallas.py:755-767, 1498-1505`), plain PyTorch as it
-    is plain XLA there.
+    is plain XLA there, through `mesh.segment_sum`'s plan of the triangles:
+    each vertex adds its corners in (triangle, corner) order, with no
+    atomic.
     """
     batch, n_tri, width = dtab.shape
     n_attr = (width - 9) // 3
-    f32 = dict(dtype=torch.float32, device=dtab.device)
-    corner_ids = triangles.long().reshape(-1)  # [T*3], (t, k) order
     xyw, d_corner = dtab.split([9, 3 * n_attr], dim=-1)
     xyw = xyw.reshape(batch, n_tri, 3, 3).transpose(2, 3)
     clip_updates = torch.cat([xyw[..., :2], torch.zeros(
-        batch, n_tri, 3, 1, **f32), xyw[..., 2:]], dim=-1)  # [B, T, k, 4]
-    d_clip = torch.zeros(batch, vertex_count, 4, **f32).index_add(
-        1, corner_ids, clip_updates.reshape(batch, n_tri * 3, 4))
-    d_attr = torch.zeros(batch, vertex_count, n_attr, **f32).index_add(
-        1, corner_ids, d_corner.reshape(batch, n_tri * 3, n_attr))
+        batch, n_tri, 3, 1, dtype=torch.float32, device=dtab.device),
+        xyw[..., 2:]], dim=-1)  # [B, T, k, 4]
+    plan = vertex_plan(triangles, vertex_count)
+    d_clip = plan.sum(clip_updates.reshape(batch, n_tri * 3, 4))
+    d_attr = plan.sum(d_corner.reshape(batch, n_tri * 3, n_attr))
     return d_clip, d_attr
 
 

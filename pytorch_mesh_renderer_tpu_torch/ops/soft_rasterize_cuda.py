@@ -55,6 +55,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..utils import kernels
+from .mesh import gather
 from .rasterize_cuda import check_kernel_operands
 
 COLS = 59
@@ -100,11 +101,12 @@ def pack_triangle_data(clip_vertices, triangles, world_vertices, normals,
     corner z, 18-20 clip w, 21 keep (front-facing CCW and non-degenerate),
     22-25 blur-inflated NDC bbox, 26-34 world corner xyz, 35-43 corner
     normals, 44-52 corner diffuse rgb, 53-55 reciprocal clip w (guarded),
-    56-58 reciprocal squared edge lengths (edges 01, 12, 20).
+    56-58 reciprocal squared edge lengths (edges 01, 12, 20). The
+    corners are gathered by `mesh.gather`, whose backward adds to the
+    vertices in a fixed order.
     """
-    tris = triangles.long()
-    batch, n_tri = clip_vertices.shape[0], tris.shape[0]
-    tv = clip_vertices[:, tris]  # [B, T, 3, 4]
+    batch, n_tri = clip_vertices.shape[0], triangles.shape[0]
+    tv = gather(clip_vertices, triangles)  # [B, T, 3, 4]
     w = tv[..., 3]
     safe_w = torch.where(w != 0.0, w, 1.0)
     ndc = tv[..., :3] / safe_w[..., None]
@@ -134,7 +136,7 @@ def pack_triangle_data(clip_vertices, triangles, world_vertices, normals,
                                                 (y0, y1, y2)), dim=-1))
 
     def corners(values):
-        return values[:, tris].reshape(batch, n_tri, 9)
+        return gather(values, triangles).reshape(batch, n_tri, 9)
 
     return torch.cat([
         m2_inv, vxy, vz, w, keep[..., None], bbox, corners(world_vertices),
@@ -550,12 +552,20 @@ def launch_sil_fwd(table, params, image_width, image_height, full_height,
     return alpha
 
 
-def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0):
-    """Launch K6; returns (dtable [B, T, 59], dsigma [B] per image).
+def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0,
+                   scratch=None):
+    """Launch K6 and its reduce pass; returns (dtable [B, T, 59], dsigma
+    [B] per image).
 
     alpha is K5's output and d_alpha [B, H, W] its cotangent; every operand
     a contiguous f32 tensor on one CUDA device. split: CTAs per pixel
-    block, as launch_soft_bwd's.
+    block, as launch_soft_bwd's. The sums run in a fixed order: two calls
+    on the same inputs give the same bits. The kernels take 24 bytes of
+    scratch per (image, table row, 16x16 pixel block), up to 256 MB: past
+    that the rows run in chunks, a K6 and a reduce launch each (one launch
+    count for the call). scratch: None to allocate that, or a contiguous
+    f32 tensor on the device to use instead; the rows then run in as few
+    chunks as it holds, and a buffer too small for one row raises.
     """
     global SIL_BWD_LAUNCHES
     device = table.device
@@ -569,14 +579,20 @@ def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0):
         raise ValueError(f"alpha {tuple(alpha.shape)} and d_alpha "
                          f"{tuple(d_alpha.shape)} want [B, H, W]")
     height, width = alpha.shape[1:]
-    dtable = torch.zeros_like(table)
-    dsigma = torch.zeros(batch, dtype=f32, device=device)
     lib = kernels.load_library()
+    dtable = torch.zeros_like(table)
+    dsigma = torch.empty(batch, dtype=f32, device=device)
+    if scratch is None:
+        scratch = torch.empty(lib.soft_sil_bwd_scratch_floats(
+            batch, n_tri, width, height, int(split)), dtype=f32,
+            device=device)
+    check_kernel_operands(device, [("scratch", scratch, f32)])
     with torch.cuda.device(device):
         error = lib.soft_sil_bwd(
             table.data_ptr(), params.data_ptr(), alpha.data_ptr(),
-            d_alpha.data_ptr(), dtable.data_ptr(), dsigma.data_ptr(), batch,
-            n_tri, width, height, full_height, int(split), _stream(device))
+            d_alpha.data_ptr(), dtable.data_ptr(), dsigma.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), batch, n_tri, width, height,
+            full_height, int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_sil_bwd launch")
     SIL_BWD_LAUNCHES += 1
     return dtable, dsigma

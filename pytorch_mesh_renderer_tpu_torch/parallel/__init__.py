@@ -1,7 +1,18 @@
-"""Training on one device: the port of the JAX package's `parallel`
-training step and loop (its meshes and sharded rasterizers are not
-ported yet)."""
+"""Scale-out: device meshes, sharded rendering, training steps and loops
+(the port of the JAX package's `parallel`)."""
 
-from .sharded import make_train_loop, make_train_step
+from .mesh import (DATA_AXIS, SPACE_AXIS, Mesh, ProcessDevice,
+                   global_devices, init_distributed, make_mesh,
+                   make_multihost_mesh, order_devices_for_dcn,
+                   single_device_mesh)
+from .sharded import (make_train_loop, make_train_step, replicate,
+                      shard_batch, sharded_rasterize, sharded_soft_rasterize,
+                      sharded_soft_silhouette)
 
-__all__ = ["make_train_loop", "make_train_step"]
+__all__ = [
+    "DATA_AXIS", "SPACE_AXIS", "Mesh", "ProcessDevice", "global_devices",
+    "init_distributed", "make_mesh", "make_multihost_mesh",
+    "order_devices_for_dcn", "single_device_mesh", "make_train_loop",
+    "make_train_step", "replicate", "shard_batch", "sharded_rasterize",
+    "sharded_soft_rasterize", "sharded_soft_silhouette",
+]

@@ -1,8 +1,30 @@
-"""Training steps and loops on one device.
+"""Sharded rendering, and training steps and loops.
 
-Port of `make_train_step` and `make_train_loop` of
-`pytorch_mesh_renderer_tpu/parallel/sharded.py:212-285`, in PyTorch's
-idiom: the parameters are tensors that a `torch.optim` optimizer holds;
+Port of `pytorch_mesh_renderer_tpu/parallel/sharded.py`. The sharded
+wrappers `sharded_rasterize`, `sharded_soft_rasterize` and
+`sharded_soft_silhouette` (`sharded.py:73-210`) take a `parallel.Mesh`
+(parallel/mesh.py) and the global tensors on its first device, split the
+batch into `data` slices and the rows into `space` strips of H / s, run
+each cell's rasterizer on the cell's device (`row_offset = j * H / s`,
+`full_height = H`; the backend follows the device as everywhere in the
+port: the kernels on a card, with no fallback) and concatenate the cells
+back on the first device. Autograd through those copies and
+concatenations adds the strips' partial vertex gradients: the `psum`s
+that JAX inserts through `shard_map`. Shading, losses and the optimizer
+run on the assembled tensors, as they stay outside `shard_map` in JAX; so
+the specular shader's normalisation over all pixels needs no all-reduce.
+`shard_batch` and `replicate` place a pytree on the first device, where
+the caller's global tensors live (a mesh of one process keeps them in
+one place; `shard_batch` checks that axis 0 divides over `data`).
+
+A captured training step (below) may call a wrapper on a mesh over one
+card, repeated or 1x1; a capture of a wrapper on a mesh over several
+distinct devices raises (ROADMAP.md Queue 1, "multi-card capture"), and
+a mesh that holds another process's device raises NotImplementedError
+(Queue 1, "multi-process execution").
+
+`make_train_step` and `make_train_loop` port `sharded.py:212-285` in
+PyTorch's idiom: the parameters are tensors that a `torch.optim` optimizer holds;
 a step takes the gradient of `loss_fn(params, batch)` and lets the
 optimizer update them in place. On a card the step is the counterpart of
 `jax.jit`: its first call runs eagerly on a side stream (the warm-up: the
@@ -29,17 +51,184 @@ falls back to eager execution on the card. An optimizer with a
 CPU, which refuses it. The kernels' launch counters
 (`ops/rasterize_cuda.LAUNCHES` and the others) count the launches made
 while capturing, once, and none of the replays.
-
-`mesh.py` and the `sharded_*` wrappers of the JAX module are not ported
-yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from ..ops import camera
+from ..ops import rasterize as rasterize_lib
+from ..ops import soft_rasterize as soft_rasterize_lib
 from ..utils import capture
+from .mesh import DATA_AXIS, SPACE_AXIS, local_device
+
+
+def _first_device(mesh):
+    return local_device(mesh.devices.flat[0])
+
+
+def _place(x, device):
+    """A tensor or numpy array on `device` (a leaf that requires a
+    gradient stays one); other leaves as they are."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if not torch.is_tensor(x) or x.device == device:
+        return x
+    if x.is_leaf and x.requires_grad:
+        return x.detach().to(device).requires_grad_(True)
+    return x.to(device)
+
+
+def shard_batch(mesh, tree):
+    """Places a pytree of batched tensors (axis 0 the batch) for a mesh:
+    on its first device, after checking that axis 0 divides over
+    "data"."""
+    n_data = mesh.shape[DATA_AXIS]
+    for leaf in tree_flatten(tree)[0]:
+        if (torch.is_tensor(leaf) or isinstance(leaf, np.ndarray)) and (
+                leaf.ndim == 0 or leaf.shape[0] % n_data != 0):
+            raise ValueError(
+                f"a leaf of shape {tuple(leaf.shape)} does not divide over "
+                f"the data axis ({n_data}) on its axis 0")
+    device = _first_device(mesh)
+    return tree_map(lambda x: _place(x, device), tree)
+
+
+def replicate(mesh, tree):
+    """Places a pytree (e.g. trainable params) for a mesh: on its first
+    device, from which every cell reads it."""
+    device = _first_device(mesh)
+    return tree_map(lambda x: _place(x, device), tree)
+
+
+def _cells(mesh, height, batch):
+    """(the mesh's local devices [data][space], the first device, rows per
+    strip, images per slice), after JAX's checks."""
+    n_space = mesh.shape[SPACE_AXIS]
+    n_data = mesh.shape[DATA_AXIS]
+    if height % n_space != 0:
+        raise ValueError(
+            f"image_height={height} must divide over the space axis "
+            f"({n_space}).")
+    if batch % n_data != 0:
+        raise ValueError(
+            f"batch={batch} must divide over the data axis ({n_data}).")
+    devices = [[local_device(d) for d in row] for row in mesh.devices]
+    return devices, devices[0][0], height // n_space, batch // n_data
+
+
+def _run_cells(mesh, height, batch, capturing, render):
+    """render(device, images, row_offset, local_height) per cell, on the
+    cell's device; the cells concatenated on the first device, strips
+    along axis 1 in order, slices along axis 0."""
+    devices, first, local_h, per = _cells(mesh, height, batch)
+    if capturing and len({d for row in devices for d in row}) > 1:
+        raise RuntimeError(
+            f"a CUDA-graph capture of a sharded render on a mesh over "
+            f"several devices ({mesh}) is not supported (ROADMAP.md Queue "
+            "1, \"multi-card capture\"); run the step eagerly or on a mesh "
+            "over one card")
+    slices = []
+    for i, row in enumerate(devices):
+        images = slice(i * per, (i + 1) * per)
+        strips = [render(device, images, j * local_h, local_h).to(first)
+                  for j, device in enumerate(row)]
+        slices.append(torch.cat(strips, dim=1))
+    return torch.cat(slices, dim=0)
+
+
+def _on(x, device, images=None):
+    """x (a tensor, else as it is) on `device`, its axis 0 cut to
+    `images`."""
+    if not torch.is_tensor(x):
+        return x
+    return (x if images is None else x[images]).to(device)
+
+
+def _triangles_on(triangles, device):
+    if torch.is_tensor(triangles):
+        return triangles.to(device)
+    return capture.constant(np.ascontiguousarray(triangles), device,
+                            torch.int32)
+
+
+def sharded_rasterize(mesh, world_space_vertices, attributes, triangles,
+                      camera_matrices, image_width, image_height,
+                      background_value, config=None):
+    """`ops.rasterize.rasterize` distributed over a (data, space) mesh.
+
+    The batch shards over "data"; pixel rows shard over "space", each cell
+    rasterizing rows [j*H/s, (j+1)*H/s) of the kernel's bottom-up row
+    order. Returns the assembled [batch, H, W, A] attribute image on the
+    mesh's first device, bit for bit the unsharded op's.
+    """
+    clip = camera.transform_homogeneous(camera_matrices,
+                                        world_space_vertices)
+
+    def render(device, images, row_offset, local_h):
+        return rasterize_lib.rasterize_clip_space(
+            _on(clip, device, images), _on(attributes, device, images),
+            _triangles_on(triangles, device), image_width, local_h,
+            _on(background_value, device), config=config,
+            row_offset=row_offset, full_height=image_height)
+
+    return _run_cells(mesh, image_height, world_space_vertices.shape[0],
+                      capture.capturing(clip), render)
+
+
+def sharded_soft_rasterize(mesh, world_space_vertices, triangles, normals,
+                           diffuse_colors, light_positions,
+                           light_intensities, camera_matrices, image_width,
+                           image_height, sigma_val, gamma_val,
+                           blur_radius=0.01, config=None):
+    """`ops.soft_rasterize.rasterize` distributed over a (data, space) mesh.
+
+    Same layout as `sharded_rasterize`; the soft kernels' rows are
+    top-down, so strip j covers top-down rows [j*H/s, (j+1)*H/s) and the
+    assembled output equals the unsharded render bit for bit.
+    """
+    clip = camera.transform_homogeneous(camera_matrices,
+                                        world_space_vertices)
+
+    def render(device, images, row_offset, local_h):
+        return soft_rasterize_lib.rasterize_clip_space_batch(
+            _on(clip, device, images), _triangles_on(triangles, device),
+            *(_on(x, device, images) for x in (
+                world_space_vertices, normals, diffuse_colors,
+                light_positions, light_intensities)),
+            image_width, local_h, _on(sigma_val, device),
+            _on(gamma_val, device), blur_radius=blur_radius, config=config,
+            row_offset=row_offset, full_height=image_height)
+
+    return _run_cells(mesh, image_height, world_space_vertices.shape[0],
+                      capture.capturing(clip), render)
+
+
+def sharded_soft_silhouette(mesh, world_space_vertices, triangles,
+                            camera_matrices, image_width, image_height,
+                            sigma_val, blur_radius=0.01, config=None):
+    """Silhouette-only soft render distributed over a (data, space) mesh.
+
+    The sharded counterpart of `soft_mesh_renderer.render_silhouette`
+    (K5 and K6 on a card): each space-axis strip renders top-down rows
+    [j*H/s, (j+1)*H/s) of the [B, H, W] alpha image; the assembled output
+    equals the unsharded silhouette bit for bit.
+    """
+    clip = camera.transform_homogeneous(camera_matrices,
+                                        world_space_vertices)
+
+    def render(device, images, row_offset, local_h):
+        return soft_rasterize_lib.rasterize_silhouette_clip_space_batch(
+            _on(clip, device, images), _triangles_on(triangles, device),
+            image_width, local_h, _on(sigma_val, device),
+            blur_radius=blur_radius, config=config, row_offset=row_offset,
+            full_height=image_height)
+
+    return _run_cells(mesh, image_height, world_space_vertices.shape[0],
+                      capture.capturing(clip), render)
 
 
 def _params(optimizer):

@@ -45,6 +45,13 @@ def hold():
         _held = outer
 
 
+def keep(*tensors):
+    """Adds `tensors` to the innermost `hold` block's list, if any: for a
+    cache other than `constant`'s whose tensors a captured graph reads."""
+    if _held is not None:
+        _held.extend(tensors)
+
+
 @functools.lru_cache(maxsize=256)
 def _cached(data: bytes, shape: tuple, dtype: str, device: torch.device):
     array = np.frombuffer(data, dtype=dtype).reshape(shape)

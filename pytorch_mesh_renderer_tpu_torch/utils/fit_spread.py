@@ -1,17 +1,19 @@
 """The flagship fit's spread on the card, through the kernels and through
 the plain route.
 
-Two runs of one fit command end apart on the card: K6's table and the
-`index_add_` scatters sum with float atomics, so a gradient's last bits
-change from run to run and Adam carries them. This runs
-docs/flagship/README.md's command (`examples.fit_shape_multiview.main`,
-in process) `--kernel-runs` times through the kernels (K5, K6) and
+The kernels' silhouette gradient sums in a fixed order (K6 and its reduce
+pass, `ops/mesh.py`'s vertex scatters), so two runs of one fit command
+should end bit for bit equal; before that repair, float atomics changed a
+gradient's last bits from run to run and Adam carried them apart. This
+runs docs/flagship/README.md's command (`examples.fit_shape_multiview.
+main`, in process) `--kernel-runs` times through the kernels (K5, K6) and
 `--plain-runs` times through the plain route
 (`SoftRasterizerConfig(backend="torch")`, the reference the kernels are
 held to), prints each run's loss terms and IoU at epochs 99, 999 and 1999
-beside docs/flagship/trajectory.log's, then each route's range. A route
-whose runs land apart from the other's would point at a bias of the
-kernels; the TPU's log is one run of a third.
+beside docs/flagship/trajectory.log's, then for each route its range at
+epoch 1999 and how many distinct end states its runs reached (vertices
+and losses bit for bit): one, for a route that repeats. The TPU's log is
+one run of a third.
 
 Before the runs it takes the silhouette loss's gradient through the
 kernels and through the plain route at points on the segment from the
@@ -127,6 +129,7 @@ def main(argv=None):
         f"epoch {e} {describe(reference[e])}" for e in EPOCHS), flush=True)
 
     ends = {"kernels": [], "plain": []}
+    states = {"kernels": set(), "plain": set()}  # distinct end states
     with tempfile.TemporaryDirectory() as out_dir:
         runs = ([("kernels", None)] * args.kernel_runs
                 + [("plain", plain)] * args.plain_runs)
@@ -134,6 +137,8 @@ def main(argv=None):
             result, seconds = fit(out_dir, f"run{i}", config)
             lines = {p["epoch"]: p for p in result["previews"]}
             ends[route].append(lines[EPOCHS[-1]])
+            states[route].add((result["vertices"].tobytes(),
+                               tuple(result["losses"])))
             print(f"{route} run {len(ends[route])} ({seconds:.2f} s): "
                   + "; ".join(f"epoch {e} {describe(lines[e])}"
                               for e in EPOCHS), flush=True)
@@ -150,7 +155,9 @@ def main(argv=None):
               f"({(losses.min() - want['loss']) / want['loss']:+.4f} to "
               f"{(losses.max() - want['loss']) / want['loss']:+.4f} of the "
               f"log's {want['loss']}), IoU {ious.min():.4f} to "
-              f"{ious.max():.4f} (log {want['iou']})", flush=True)
+              f"{ious.max():.4f} (log {want['iou']}); "
+              f"{len(states[route])} distinct end state(s) bit for bit",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -137,7 +137,10 @@ def load_library() -> ctypes.CDLL:
     lib.soft_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.soft_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
     lib.soft_sil_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
-    lib.soft_sil_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.soft_sil_bwd.argtypes = [ptr] * 7 + [ctypes.c_longlong] + [
+        i32] * 6 + [ptr]
+    lib.soft_sil_bwd_scratch_floats.argtypes = [i32] * 5
+    lib.soft_sil_bwd_scratch_floats.restype = ctypes.c_longlong
     occupancy = (lib.rasterize_fused_fwd_blocks_per_sm,
                  lib.rasterize_fused_bwd_blocks_per_sm,
                  lib.rasterize_bary_bwd_blocks_per_sm,

@@ -313,12 +313,20 @@ def takes_split(kernel):
     return "split" in inspect.signature(launcher).parameters
 
 
+def kernel_names(kernel):
+    """The __global__ functions that one launcher of `kernel` runs: K6
+    runs its reduce pass after it."""
+    return (f"{kernel}_kernel",) + (
+        (f"{kernel}_reduce_kernel",) if kernel == "soft_sil_bwd" else ())
+
+
 def time_kernel(kernel, table, lights, params, size, split=0, iters=20):
-    """(launch ms by CUDA events, `<kernel>_kernel` device ms by
-    torch.profiler) of `kernel` (a key of SPLITS) at size x size; split 0
-    is the kernel's own. Where the profiler records no kernel, the device
-    ms are those of the whole launch by CUDA events
-    (common.device_profile)."""
+    """(launch ms by CUDA events, device ms by torch.profiler of the
+    kernels of `kernel_names`, {name: device ms} of each of them) of
+    `kernel` (a key of SPLITS) at size x size; split 0 is the kernel's
+    own. Where the profiler records no kernel, the device ms are those of
+    the whole launch by CUDA events (common.device_profile) and the dict
+    is empty."""
     from ..microbench import common
 
     launch = kernel_launch(kernel, table, lights, params, size)
@@ -329,10 +337,11 @@ def time_kernel(kernel, table, lights, params, size, split=0, iters=20):
 
     launch_ms = common.wall_ms(run, table.device, iters)
     by_name, total, _ = common.device_profile(run, iters=10)
-    device = (total if common.EVENTS_ONLY in by_name else
-              sum(t for name, t in by_name.items()
-                  if f"{kernel}_kernel" in name))
-    return launch_ms, device
+    if common.EVENTS_ONLY in by_name:
+        return launch_ms, total, {}
+    parts = {k: sum(t for name, t in by_name.items() if k in name)
+             for k in kernel_names(kernel)}
+    return launch_ms, sum(parts.values()), parts
 
 
 def scene_table(scene, device):
@@ -352,26 +361,31 @@ def scene_table(scene, device):
 def kernel_times(kernel, device):
     """[{scene, batch, triangles, launch_and_device_ms}] of `kernel` on each
     of its SCENES, at its compiled split and at each split tried
-    (time_kernel's pair per split)."""
+    (time_kernel's pair per split), and for a kernel of two launches (K6
+    and its reduce pass) `device_ms_by_kernel` per split."""
     splits = (0,) + (SPLITS[kernel] if takes_split(kernel) else ())
     lines = []
     for scene in SCENES[kernel]:
         table, lights, params = scene_table(scene, device)
         size = int(re.search(r"\d+", scene)[0])
-        times = {f"split {s or 'compiled'}": time_kernel(
+        timed = {f"split {s or 'compiled'}": time_kernel(
             kernel, table, lights, params, size, s) for s in splits}
-        lines.append({"kernel": kernel, "scene": scene,
-                      "batch": table.shape[0], "triangles": table.shape[1],
-                      "launch_and_device_ms": times})
+        line = {"kernel": kernel, "scene": scene, "batch": table.shape[0],
+                "triangles": table.shape[1], "launch_and_device_ms": {
+                    split: t[:2] for split, t in timed.items()}}
+        if len(kernel_names(kernel)) > 1:
+            line["device_ms_by_kernel"] = {split: t[2]
+                                           for split, t in timed.items()}
+        lines.append(line)
     return lines
 
 
 def k7_outputs(device):
     """K7's (rgba, m, sum_w) on the CPU for chip_smoke.py's phase 8 scenes
     (test_utils.SOFT_SCENES and SOFT_EDGE_SCENES) and the teapot at 256x256
-    batch 4, the teapot packed on the CPU (on the card its vertex normals
-    sum by atomics), keyed by scene name: what two builds of K7 must give
-    bit for bit."""
+    batch 4, the teapot packed on the CPU (as it was packed when the
+    card's vertex normals summed by atomics), keyed by scene name: what
+    two builds of K7 must give bit for bit."""
     from ..ops import soft_rasterize_cuda as sc
     from . import test_utils
 
@@ -424,8 +438,8 @@ def main(argv=None):
             if not all(equal.values()):
                 raise SystemExit("soft_work: K7's outputs differ")
     for kernel in args.kernels:
-        print(json.dumps({f"{kernel}_kernel": kernel_report(
-            log, f"{kernel}_kernel")}), flush=True)
+        for name in kernel_names(kernel):
+            print(json.dumps({name: kernel_report(log, name)}), flush=True)
         for line in kernel_times(kernel, dev):
             print(json.dumps(line), flush=True)
     for scene in ("teapot 256", "teapot 128", "fit 128"):

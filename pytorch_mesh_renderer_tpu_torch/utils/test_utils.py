@@ -277,8 +277,9 @@ SOFT_ALPHA_ATOL = 1e-6
 # Backward gate, relative to each plain tensor's max |value| and, for the
 # table gradient, to each column group's (the JAX suite's CPU gate between
 # its soft backward backends, tests/test_soft_pallas.py:81-89). The
-# kernels sum per-pixel terms with warp shuffles and atomic adds, in an
-# order that changes from run to run.
+# kernels sum per-pixel terms with warp shuffles in another order than
+# the plain version, and K8 with atomic adds whose order changes from run
+# to run (K6's order is fixed).
 SOFT_GRAD_RTOL = 1e-4
 # d/dgamma's gate, the JAX suite's own (tests/test_soft_pallas.py:183-184).
 # It sums per-pixel terms W (shade - rgb) z / gamma^2 that cancel: at the

@@ -31,13 +31,9 @@ MODULES = {
     "soft_rasterize": "ops.soft_rasterize", "test_utils": "utils.test_utils",
 }
 
-# M8b (ROADMAP Queue 1): the device meshes and the sharded wrappers.
-NOT_YET_PORTED = {
-    ("parallel", name) for name in (
-        "init_distributed", "make_mesh", "make_multihost_mesh",
-        "order_devices_for_dcn", "replicate", "shard_batch",
-        "sharded_rasterize", "sharded_soft_rasterize",
-        "sharded_soft_silhouette", "single_device_mesh")}
+# Every public name of the JAX package is ported (the device meshes and
+# the sharded wrappers were the last).
+NOT_YET_PORTED = set()
 # TPU knobs the port does not carry over (ROADMAP, "Not carried over").
 NOT_CARRIED_OVER = {("config", "resolve_dot_precision")}
 # (module, name) -> the JAX parameters the port leaves out, and why.

@@ -34,7 +34,9 @@ body, with and without shading); the
 backward kernels (K6, K8) within `test_utils.SOFT_GRAD_RTOL` of each plain
 tensor's max |value|, the table gradient's per group of columns that come
 from one input of the packing: clip, world, normals, colours
-(`test_utils.SOFT_DTABLE_GROUPS`; atomic adds again). d/dgamma and the z columns are compared only where the triangles
+(`test_utils.SOFT_DTABLE_GROUPS`; K8's atomic adds again, K6 sums in a
+fixed order and repeats bit for bit on the teapot, the cow fit's shape and
+the pose_tie scene). d/dgamma and the z columns are compared only where the triangles
 differ in depth: on the two-triangle scene every triangle lies at NDC z
 0.25, so the render does not depend on gamma at all and both routes return
 f32 cancellation noise (per-pixel terms W (shade - rgb) z / gamma^2 of ~4e2
@@ -44,8 +46,11 @@ with chip_smoke.py.
 The training step of `parallel.make_train_step` captures its gradient
 and update into a CUDA graph on the card: the captured hard and
 silhouette steps agree with eager steps within the training step's 1e-4
-(the backward kernels' atomics), a new batch is copied into the captured
-inputs, and a step that cannot be captured raises.
+(the hard backward kernels' atomics), a new batch is copied into the
+captured inputs, and a step that cannot be captured raises; the captured
+cow-fit step repeats bit for bit. The sharded wrappers on 2x2, 4x1 and
+1x4 meshes over the card equal the unsharded renders bit for bit, and a
+sharded step captures on one card and refuses a mesh over two devices.
 
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
@@ -67,11 +72,13 @@ from pytorch_mesh_renderer_tpu_torch.microbench import patch_scatter as ps
 from pytorch_mesh_renderer_tpu_torch.models import (mesh_renderer, shapes,
                                                     soft_mesh_renderer)
 from pytorch_mesh_renderer_tpu_torch.ops import camera
+from pytorch_mesh_renderer_tpu_torch.ops import mesh as mesh_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-from pytorch_mesh_renderer_tpu_torch.utils import (capture, hard_work, scenes,
+from pytorch_mesh_renderer_tpu_torch.utils import (capture, hard_work, kernels,
+                                                   scenes, soft_work,
                                                    test_utils)
 
 pytestmark = pytest.mark.cuda
@@ -507,8 +514,6 @@ def test_k4_matches_its_plain_version(dev, case):
 def test_k4_keeps_its_own_kernel_name(dev):
     """K4 runs K2's body under its own symbol, which the profiler and the
     build report name (utils/hard_work.py finds kernels by name)."""
-    from pytorch_mesh_renderer_tpu_torch.utils import kernels, soft_work
-
     operands = _k4_operands("random 37x23", dev)
     rb.launch_bary_bwd(*operands)  # built and warm
     torch.cuda.synchronize()
@@ -1135,3 +1140,250 @@ def test_pixel_centers_on_the_card_are_ieee_quotients(dev):
         np.testing.assert_array_equal(
             py.cpu().numpy(),
             f(-2.0) * (rows + f(0.5)) / f(full_height) + f(1.0))
+
+
+# K6 and the silhouette fit's gradient sum in a fixed order: the same bits
+# on every call. The scenes: the teapot 256x256 batch 4, the cow fit's
+# shape (128x128, 4 views) and the pose cube at its nearest-edge ties.
+K6_SCENES = ("teapot 256", "fit 128", "pose_tie")
+
+
+def _k6_scene(name, dev):
+    """(table, params, width, height) of a K6_SCENES scene."""
+    if name == "pose_tie":
+        scene = test_utils.soft_scene(name, dev)
+        return scene.table, scene.params, scene.width, scene.height
+    size = int(name.split()[-1])
+    table, _, params = soft_work.scene_table(name, dev)
+    return table, params, size, size
+
+
+@pytest.mark.parametrize("scene", K6_SCENES)
+def test_k6_repeats_bit_for_bit_and_matches_its_plain_version(dev, scene):
+    table, params, width, height = _k6_scene(scene, dev)
+    alpha = sc.launch_sil_fwd(table, params, width, height, height)
+    d_alpha = test_utils.soft_cotangents(table.shape[0], height, width,
+                                         dev)[..., 3].contiguous()
+    runs = [sc.launch_sil_bwd(table, params, alpha, d_alpha, height)
+            for _ in range(3)]
+    for dtable, dsigma in runs[1:]:
+        assert torch.equal(dtable, runs[0][0])
+        assert torch.equal(dsigma, runs[0][1])
+    plain = sc.soft_silhouette_backward_torch_packed(
+        table, params[0], params[2], height, width, 0, height, d_alpha)
+    test_utils.grad_errors("dtable", runs[0][0], plain[0], SOFT_GRAD_RTOL,
+                           test_utils.SOFT_DTABLE_GROUPS)
+    test_utils.grad_errors("dsigma", runs[0][1].sum(), plain[1],
+                           SOFT_GRAD_RTOL)
+    assert float(runs[0][0][..., 9:15].abs().max()) > 0.0
+    untouched = torch.cat([runs[0][0][..., :9], runs[0][0][..., 15:]], -1)
+    assert torch.equal(untouched, torch.zeros_like(untouched))
+
+
+def test_k6_in_row_chunks_matches_its_plain_version(dev):
+    """Past its scratch K6 runs the rows in chunks, a K6 and a reduce
+    launch each: given an eighth of the scratch that holds the teapot's
+    rows in one launch, the gradients still match the plain version,
+    repeat bit for bit, and take one launch count; a scratch too small
+    for one row raises."""
+    table, params, width, height = _k6_scene("teapot 256", dev)
+    alpha = sc.launch_sil_fwd(table, params, width, height, height)
+    d_alpha = test_utils.soft_cotangents(table.shape[0], height, width,
+                                         dev)[..., 3].contiguous()
+    whole = kernels.load_library().soft_sil_bwd_scratch_floats(
+        table.shape[0], table.shape[1], width, height, 0)
+    before = sc.SIL_BWD_LAUNCHES
+    runs = [sc.launch_sil_bwd(table, params, alpha, d_alpha, height,
+                              scratch=torch.empty(whole // 8, device=dev))
+            for _ in range(2)]
+    assert sc.SIL_BWD_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plain = sc.soft_silhouette_backward_torch_packed(
+        table, params[0], params[2], height, width, 0, height, d_alpha)
+    test_utils.grad_errors("dtable", runs[0][0], plain[0], SOFT_GRAD_RTOL,
+                           test_utils.SOFT_DTABLE_GROUPS)
+    test_utils.grad_errors("dsigma", runs[0][1].sum(), plain[1],
+                           SOFT_GRAD_RTOL)
+    with pytest.raises(RuntimeError):
+        sc.launch_sil_bwd(table, params, alpha, d_alpha, height,
+                          scratch=torch.empty(8, device=dev))
+
+
+def test_captured_fit_step_repeats_bit_for_bit(dev):
+    """Two captured silhouette fits (the flagship's step at its shape) from
+    one start end bit for bit equal, and equal an eager run."""
+    from pytorch_mesh_renderer_tpu_torch.examples import fit_shape_multiview
+
+    problem = fit_shape_multiview.Problem(fit_shape_multiview.parse_args(
+        ["--size", "128", "--resolution", "24"]), dev)
+
+    def run(captured):
+        offsets = torch.zeros_like(problem.verts0, requires_grad=True)
+        optimizer = torch.optim.Adam([offsets], lr=1e-2, capturable=True)
+        step = parallel.make_train_step(problem.loss, optimizer)
+        call = step if captured else step.run_eager
+        losses = torch.stack([call(problem.targets) for _ in range(6)])
+        return losses, offsets.detach()
+
+    first, second, eager = run(True), run(True), run(False)
+    for other in (second, eager):
+        assert torch.equal(first[0], other[0])
+        assert torch.equal(first[1], other[1])
+    assert float(first[1].abs().max()) > 0.0
+
+
+def test_a_captured_step_plans_each_per_call_index(dev):
+    """A step that makes two indices of the same shape per call (the
+    teapot's triangles flipped two ways) captures: at every replay each
+    index's gather takes its own plan in the backward, so the captured
+    losses and parameters equal the eager ones bit for bit."""
+    scene = scenes.build_scene(1, dev)
+    tris = scene["triangles"]
+    start = scene["vertices"][0].detach()
+    weights = torch.linspace(-1.0, 1.0, tris.numel() * 3,
+                             device=dev).reshape(*tris.shape, 3)
+    batch = torch.zeros(1, device=dev)
+
+    def loss_fn(params, batch):
+        first = mesh_ops.gather(params[0], tris.flip(1).contiguous())
+        second = mesh_ops.gather(params[0], tris.flip(0).contiguous())
+        return ((first * weights).sum() + (second * weights) ** 2).mean()
+
+    def run(captured):
+        x = start.clone().requires_grad_(True)
+        optimizer = torch.optim.Adam([x], lr=1e-2, capturable=True)
+        step = parallel.make_train_step(loss_fn, optimizer)
+        call = step if captured else step.run_eager
+        losses = torch.stack([call(batch) for _ in range(4)])
+        return losses, x.detach()
+
+    captured, eager = run(True), run(False)
+    assert bool(torch.isfinite(captured[1]).all())
+    assert torch.equal(captured[0], eager[0])
+    assert torch.equal(captured[1], eager[1])
+
+
+def _sharded_scenes(dev):
+    """The cube scene of tests/test_parallel.py at 32x32, batch 4:
+    (vertices, triangles CW, attributes, camera matrices, normals)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    v, t, n = (a.to(dev) for a in shapes.cube(2.0))
+    batch = 4
+    angles = torch.stack([torch.linspace(0.1, 0.5, batch),
+                          torch.linspace(-0.3, 0.4, batch),
+                          torch.zeros(batch)], -1).to(dev)
+    rot = camera.euler_matrices(angles)[:, :3, :3]
+    verts = torch.einsum("bij,vj->bvi", rot, v)
+    normals = torch.einsum("bij,vj->bvi", rot, n)
+    cams = camera.clip_space_transforms(
+        torch.tensor([[0.0, 0.0, 6.0]] * batch, **f32),
+        torch.zeros(batch, 3, **f32),
+        torch.tensor([[0.0, 1.0, 0.0]] * batch, **f32),
+        torch.full((batch,), 40.0, **f32), torch.full((batch,), 0.01, **f32),
+        torch.full((batch,), 10.0, **f32), 32, 32)
+    attrs = torch.linspace(0.0, 1.0, v.shape[0] * 3, **f32).reshape(
+        1, -1, 3).expand(batch, -1, -1).contiguous()
+    return verts, t, attrs, cams, normals
+
+
+@pytest.mark.parametrize("data,space", [(2, 2), (4, 1), (1, 4)])
+def test_sharded_wrappers_on_one_card_equal_the_unsharded_renders(
+        dev, data, space):
+    """Each cell launches its kernels on the card; the assembled outputs
+    equal the unsharded renders bit for bit and the vertex gradients agree
+    within the backward gates (the strips' sums add in another order)."""
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize as sr
+
+    verts, t, attrs, cams, normals = _sharded_scenes(dev)
+    mesh = parallel.make_mesh(data, space, devices=[dev] * 4)
+    background = torch.zeros(3, device=dev)
+    colors = torch.full_like(verts, 0.7)
+    lights = torch.tensor([[[0.0, 3.0, 3.0]]] * 4, device=dev)
+    intensities = torch.ones(4, 1, device=dev)
+    cw = t.flip(1).contiguous()
+    renders = {
+        "hard": (lambda v: rasterize_ops.rasterize(
+            v, attrs, cw, cams, 32, 32, background),
+                 lambda v: parallel.sharded_rasterize(
+            mesh, v, attrs, cw, cams, 32, 32, background), 1e-5),
+        "soft": (lambda v: sr.rasterize(
+            v, t, normals, colors, lights, intensities, cams, 32, 32, 1e-4,
+            1e-4), lambda v: parallel.sharded_soft_rasterize(
+            mesh, v, t, normals, colors, lights, intensities, cams, 32, 32,
+            1e-4, 1e-4), SOFT_GRAD_RTOL),
+        "silhouette": (lambda v: sr.rasterize_silhouette_clip_space_batch(
+            camera.transform_homogeneous(cams, v), t, 32, 32, 1e-4),
+                       lambda v: parallel.sharded_soft_silhouette(
+            mesh, v, t, cams, 32, 32, 1e-4), SOFT_GRAD_RTOL)}
+    for name, (single, sharded, rtol) in renders.items():
+        grads = []
+        for render in (single, sharded):
+            v = verts.clone().requires_grad_(True)
+            rc.LAUNCHES = sc.FWD_LAUNCHES = sc.SIL_FWD_LAUNCHES = 0
+            out = render(v)
+            grads.append((out, torch.autograd.grad((out ** 2).mean(),
+                                                   v)[0]))
+        launched = {"hard": rc.LAUNCHES, "soft": sc.FWD_LAUNCHES,
+                    "silhouette": sc.SIL_FWD_LAUNCHES}[name]
+        assert launched == data * space, name
+        assert torch.equal(grads[0][0], grads[1][0]), name
+        test_utils.grad_errors(name, grads[1][1], grads[0][1], rtol)
+
+
+def test_a_sharded_step_captures_on_one_card_and_refuses_two_devices(dev):
+    """The captured step of a fit through sharded_soft_silhouette on a 2x2
+    mesh over the card equals its eager step bit for bit; a capture on a
+    mesh over the card and the CPU raises and names the ROADMAP item."""
+    verts, t, _, cams, _ = _sharded_scenes(dev)
+    with torch.no_grad():
+        target = parallel.sharded_soft_silhouette(
+            parallel.single_device_mesh(), verts + 0.05, t, cams, 32, 32,
+            1e-4)
+
+    def run(mesh, captured):
+        param = verts.clone().requires_grad_(True)
+        step = parallel.make_train_step(
+            lambda params, batch: torch.mean((parallel.sharded_soft_silhouette(
+                mesh, params[0], t, cams, 32, 32, 1e-4) - batch) ** 2),
+            torch.optim.Adam([param], lr=1e-2, capturable=True))
+        call = step if captured else step.run_eager
+        return torch.stack([call(target) for _ in range(4)]), param.detach()
+
+    mesh = parallel.make_mesh(2, 2, devices=[dev] * 4)
+    captured, eager = run(mesh, True), run(mesh, False)
+    assert torch.equal(captured[0], eager[0])
+    assert torch.equal(captured[1], eager[1])
+    with pytest.raises(RuntimeError, match="multi-card capture"):
+        run(parallel.make_mesh(2, 1, devices=[dev, torch.device("cpu")]),
+            True)
+
+
+def test_backward_kernels_run_to_run_spread_is_recorded(dev):
+    """K8, K2 and K4 keep their float atomics (ROADMAP Queue 3, known
+    nondeterministic reductions): their run-to-run spread, max |a - b|
+    over max |a| between two calls on the teapot, is printed, not
+    gated."""
+    teapot = scenes.build_scene(4, dev)
+    table, lights, params = soft_work.teapot_table(256, dev)
+    (rgba, run_max, sum_w), d_rgba = soft_work.forward_residuals(
+        table, lights, params, 256)
+    clip = scenes.clip_vertices(teapot, 256)
+    rows, inv_abs_det = rc.pack_rows(clip, teapot["triangles"], True)
+    corner = rc.pack_corner_attributes(
+        torch.cat([teapot["normals"], teapot["diffuse"],
+                   teapot["vertices"]], -1), teapot["triangles"])
+    ids, bc, _ = rc.launch_fused_fwd(rows, corner, 256, 256, 0, 256, False)
+    g_bc, g_attr = _cotangents(ids, corner.shape[-1])
+    calls = {
+        "soft_bwd": lambda: sc.launch_soft_bwd(
+            table, lights, params, rgba, run_max, sum_w, d_rgba, 256)[0],
+        "rasterize_fused_bwd": lambda: rc.launch_fused_bwd(
+            ids, bc, g_bc, g_attr, rows, inv_abs_det, corner),
+        "rasterize_bary_bwd": lambda: rb.launch_bary_bwd(
+            ids[:1], bc[:1], g_bc[:1], rows[:1], inv_abs_det[:1])}
+    for name, call in calls.items():
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+        spread = float((a - b).abs().max() / a.abs().max())
+        print(f"{name}: run-to-run spread {spread:.3g} of max |value|")

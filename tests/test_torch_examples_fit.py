@@ -89,7 +89,12 @@ def test_a_checkpoint_saved_on_the_card_resumes_on_the_cpu(tmp_path):
             == (tmp_path / "straight_final.obj").read_bytes())
 
 
-def test_mesh_is_refused_until_sharding_is_ported(capsys):
-    with pytest.raises(SystemExit):
-        fit_shape_multiview.main(["--mesh", "4,2", "--device", "cpu"])
-    assert "--mesh is not ported yet" in capsys.readouterr().err
+def test_mesh_flag_parses_and_an_oversized_mesh_is_refused(tmp_path):
+    """--mesh is ported (parallel.make_mesh over the devices of --device):
+    the flag parses, and a mesh larger than the device list is refused as
+    JAX's make_mesh refuses it (tests/test_torch_parallel.py runs the fit
+    on a mesh)."""
+    assert fit_shape_multiview.parse_args(["--mesh", "4,2"]).mesh == "4,2"
+    with pytest.raises(ValueError, match="Mesh 4x2 needs 8 devices, have 1"):
+        fit_shape_multiview.main(["--mesh", "4,2", "--device", "cpu",
+                                  "--out-prefix", str(tmp_path / "fit")])

@@ -6,8 +6,9 @@ imageio or matplotlib, which the JAX examples use. A fresh interpreter with
 `sys.modules[name] = None` for each makes any such import fail; in it, the
 port must import (its checkpoint, native-parser and example modules too),
 render a cube on the CPU with the hard and the soft renderer, take their
-gradients, run the microbenchmarks' plain versions, a training loop, the
-bench and an example CLI.
+gradients, render the silhouette on a 2x2 device mesh, run the
+microbenchmarks' plain versions, a training loop, the bench and an
+example CLI.
 """
 
 import os
@@ -34,6 +35,7 @@ from pytorch_mesh_renderer_tpu_torch.examples import (  # noqa: F401
     common, fit_shape_multiview, optimize_camera_pose, optimize_cube_rotation,
     optimize_teapot_rotation, render_teapot_hard, render_teapot_soft)
 from pytorch_mesh_renderer_tpu_torch import bench, parallel
+from pytorch_mesh_renderer_tpu_torch.parallel import mesh as device_mesh
 from pytorch_mesh_renderer_tpu_torch.microbench import (
     mxu_edge, mxu_full, patch_scatter)
 
@@ -67,6 +69,16 @@ edges = pmt.mesh.compute_edges_list(t)
 (pmt.losses.silhouette_mse_loss(alpha, torch.ones_like(alpha))
  + pmt.losses.edge_loss(vs[0], edges)).backward()
 assert bool(torch.isfinite(vs.grad).all()) and float(vs.grad.abs().max()) > 0
+# The sharded silhouette on a 2x2 mesh over the CPU equals the unsharded.
+grid = device_mesh.make_mesh(2, 2, devices=["cpu"] * 4)
+cams2 = pmt.camera.clip_space_transforms(
+    cam[0].expand(2, 3), cam[1].expand(2, 3), cam[2].expand(2, 3),
+    torch.full([2], 40.0), torch.full([2], 0.01), torch.full([2], 10.0), 32,
+    24)
+pair = vs.detach().expand(2, -1, -1)
+assert torch.equal(
+    parallel.sharded_soft_silhouette(grid, pair, t, cams2, 32, 24, 1e-5),
+    pmt.soft_mesh_renderer.render_silhouette(pair, t, *cam, 32, 24))
 # The microbenchmarks' plain versions and the bench scene.
 assert mxu_edge.run(4, 8, 1, "cpu")["tc_tf32x3_relerr"] <= 1e-6
 assert mxu_full.run(64, 8, 1, "cpu")["covered_px"] > 0
