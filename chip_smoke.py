@@ -113,7 +113,8 @@ pytorch_mesh_renderer_tpu_torch/microbench/, follow:
                cull regions' corner pixel centres); each kernel's launch
                shape (CTAs per SM) and device time (torch.profiler), its
                plain version's and, for mxu_edge, torch.matmul + sum's;
-               for patch_eval also its rate over every slot's bytes.
+               for patch_eval its bound over every slot it writes, and
+               beside it the bound over the live instances alone.
 
 The training step and loop, and the bench, follow:
 
@@ -175,6 +176,25 @@ The sharded wrappers follow:
                repeats bit for bit; the captured and eager hard teapot step
                and fit step by CUDA events, unsharded and on each mesh (the
                sharded-vs-unsharded overhead on one card).
+ 17. multiprocess — the same wrappers across processes
+               (`utils/ranks.py`, after the build of phase 2): 2 ranks,
+               then 4, each a subprocess on the one card over gloo with
+               its own timeout (RANK_TIMEOUT), rendering its own cells
+               (`parallel/collectives.py`): the teapot 256x256 batch 4
+               hard on the 2x1 mesh, the explicit 2x2 list (each rank
+               holding the card twice) and 4x1, the soft teapot at 128x128
+               batch 4 on 2x1, each output bit for bit the unsharded render
+               on the kernels and its gradient within GRAD_RTOL (hard) or
+               TRAIN_RTOL (soft), the ranks bit for bit equal, two runs in
+               each rank with equal outputs and gradients within the same
+               gate (K2 and K8 add with atomics), the kernels launched in
+               every rank; 5 eager Adam steps of the cow fit (128x128, 4
+               views) on 2 ranks, within TRAIN_RTOL of 5 unsharded steps,
+               the ranks' parameters bit for bit equal, two runs bit for
+               bit equal, and a capture on the mesh
+               raises naming step.run_eager; the eager fit step's ms on 2
+               ranks, in one process on the 2x1 mesh and unsharded. NCCL
+               (one rank per card) is not exercised on one card.
 
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -273,6 +293,8 @@ SHARD_MESHES = ((2, 2), (4, 1), (1, 4))
 SHARD_SIL_SCALED_ATOL = 2e-4
 # load_obj calls timed per parser on the teapot.
 LOAD_OBJ_RUNS = 5
+# Phase 17: each rank's seconds to start, run its job and exit.
+RANK_TIMEOUT = 300.0
 
 CUBE_VERTICES = [[-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1],
                  [1, -1, 1], [1, -1, -1], [1, 1, -1], [1, 1, 1]]
@@ -1053,26 +1075,28 @@ def microbench_phase(dev, card):
               lambda: ps.patch_eval_torch(table, size, patch))
         eval_ms.append(ms[name])
         eval_plain_ms.append(plain_ms[name])
-        # The live instances' rows and outputs: a dead slot's outputs are
-        # constants (z = 2, zeros) that the merges need not read, since
-        # each instance's triangle id says it is dead.
+        # The kernel's output is every slot's four planes, dead slots too
+        # (it evaluates and writes them all, and the merges read them):
+        # every slot's row read once and its outputs written once. Beside
+        # it, the bound over the live instances alone.
         live = result["instances_live"]
-        eval_bounds.append(bound_ms(
-            live * ps.TABLE_COLS * 4 + 4 * live * ps.LANES * 4,
-            live * ps.LANES * ps.OPS_PER_LANE))
-        # What the kernel's contract moves: every slot's row read and its
-        # four output planes written, dead slots too (the merges read them).
         slots = table.numel() // ps.TABLE_COLS
         all_bytes = slots * (ps.TABLE_COLS * 4 + 4 * ps.LANES * 4)
+        eval_bounds.append(bound_ms(all_bytes,
+                                    slots * ps.LANES * ps.OPS_PER_LANE))
+        live_bound = bound_ms(
+            live * ps.TABLE_COLS * 4 + 4 * live * ps.LANES * 4,
+            live * ps.LANES * ps.OPS_PER_LANE)
         rate = all_bytes / (ms[name] * 1e-3)
         log("microbench", f"{card} | patch_eval {config}: bit for bit; "
-            f"{table.shape[1]} instances per image ({result['instances_live']}"
-            f" live of {slots} slots in the batch): device {ms[name]:.4f} ms,"
-            f" plain {plain_ms[name]:.4f} ms, bound {eval_bounds[-1][0]:.4f}"
-            f" ms ({eval_bounds[-1][1]}, live instances only); all slots' "
-            f"bytes {all_bytes} ({all_bytes / 1e6:.1f} MB) at "
-            f"{rate / 1e12:.3f} TB/s, {rate / PEAK_BYTES_PER_S:.1%} of the "
-            "memory rate")
+            f"{table.shape[1]} instances per image ({live} live of {slots} "
+            f"slots in the batch): device {ms[name]:.4f} ms, plain "
+            f"{plain_ms[name]:.4f} ms, bound {eval_bounds[-1][0]:.4f} ms "
+            f"({eval_bounds[-1][1]}: every slot's {all_bytes / 1e6:.1f} MB, "
+            f"at {rate / 1e12:.3f} TB/s, {rate / PEAK_BYTES_PER_S:.1%} of "
+            f"the memory rate); over the live instances alone "
+            f"{live_bound[0]:.4f} ms "
+            f"({live_bound[0] / ms[name]:.1%} of the device time)")
     # The kernels line reports the headline config.
     ms[name], plain_ms[name], bounds[name] = (eval_ms[0], eval_plain_ms[0],
                                              eval_bounds[0])
@@ -1603,6 +1627,120 @@ def shard_phase(dev, card, teapot):
     log("shard", f"launches {launches}; phase 16 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def multiprocess_phase(dev, card):
+    """Phase 17: the sharded wrappers and the fit step across processes
+    (`utils/ranks.py`): 2 ranks, then 4, each a subprocess on the one card
+    over gloo (NCCL refuses two ranks on one card), each with its own
+    timeout, rendering its own cells; this process holds what they return
+    to its own unsharded runs on the kernels and times the eager fit
+    step."""
+    import tempfile
+
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch import parallel
+    from pytorch_mesh_renderer_tpu_torch.microbench import common
+    from pytorch_mesh_renderer_tpu_torch.utils import kernels, ranks
+
+    t_phase = time.perf_counter()
+    kernels.build()  # before the ranks, which load it
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            runs[world] = ranks.run(world, os.path.join(tmp, str(world)),
+                                    "cuda", "full", "gloo", RANK_TIMEOUT)
+            log("multiprocess", f"{world} ranks over gloo on the card: "
+                f"{time.perf_counter() - t0:.1f} s")
+    cases = ranks.case_fns("full", dev, 1)
+    launched_by = {"hard": ("rasterize_fused_fwd", "rasterize_fused_bwd"),
+               "soft": ("soft_fwd", "soft_bwd"),
+               "steps": ("soft_sil_fwd", "soft_sil_bwd")}
+    for world, results in runs.items():
+        for key in (k for k in results[0] if "/" in k):
+            case, name = key.split("/")
+            per_rank = [r[key] for r in results]
+            tensors = [k for k, v in per_rank[0].items() if torch.is_tensor(v)]
+            same = all(torch.equal(r[k], per_rank[0][k])
+                       for r in per_rank for k in tensors)
+            repeat = all(r["repeat"] for r in per_rank)
+            spread = max(r["spread"] for r in per_rank)
+            launched = all(r["launches"][k] > 0 for r in per_rank
+                           for k in launched_by[case])
+            if case == "steps":
+                continue
+            start, render = cases[case]
+            want, want_grad = ranks.output_and_grad(start, render, None,
+                                                    case)
+            torch.cuda.synchronize()
+            got, got_grad = per_rank[0]["out"], per_rank[0]["grad"]
+            equal = torch.equal(got, want.cpu())
+            err = float((got_grad - want_grad.cpu()).abs().max())
+            scale = float(want_grad.abs().max())
+            rtol = GRAD_RTOL if case == "hard" else TRAIN_RTOL
+            log("multiprocess", f"{case} {name} on {world} ranks: output bit "
+                f"for bit the unsharded render's: {equal}; gradient max abs "
+                f"{err:.3g} of max |unsharded| {scale:.4g} (gate {rtol}); "
+                f"ranks bit for bit equal: {same}; two runs' outputs equal: "
+                f"{repeat}, gradients {spread:.3g} apart (K2 and K8 add with "
+                f"atomics; gate {rtol}); each rank launched "
+                f"{launched_by[case]}: {launched}")
+            if not (equal and err <= rtol * scale and same and repeat
+                    and spread <= rtol * scale and launched):
+                raise AssertionError(f"multiprocess: {case} on {name} over "
+                                     f"{world} ranks")
+
+    # The fit step on 2 ranks: 5 eager Adam steps, against 5 unsharded.
+    steps = ranks.STEPS["full"]
+    per_rank = [r["steps/2x1"] for r in runs[2]]
+    unsharded = ranks.fit_problem("full", dev, None)
+    losses, offsets = ranks.eager_steps(unsharded, dev, steps)
+    torch.cuda.synchronize()
+    same = all(torch.equal(r["offsets"], per_rank[0]["offsets"])
+               and torch.equal(r["losses"], per_rank[0]["losses"])
+               for r in per_rank)
+    repeat = all(r["repeat"] and r["spread"] == 0.0 for r in per_rank)
+    scale = float(offsets.abs().max())
+    err = float((per_rank[0]["offsets"] - offsets.cpu()).abs().max())
+    loss_err = float(((per_rank[0]["losses"] - losses.cpu()).abs()
+                      / losses.cpu().abs()).max())
+    raised = all("step.run_eager" in (r["capture_error"] or "")
+                 for r in per_rank)
+    launched = all(r["launches"][k] > 0 for r in per_rank
+                   for k in launched_by["steps"])
+    log("multiprocess", f"fit step, cow 128^2 x 4 views, {steps} eager Adam "
+        f"steps on 2 ranks (2x1): offsets max abs {err:.3g} of max "
+        f"|unsharded| {scale:.4g} (gate {TRAIN_RTOL}), losses {loss_err:.3g} "
+        f"relative; ranks bit for bit equal: {same}; two runs equal: "
+        f"{repeat}; a capture on the mesh raises naming step.run_eager: "
+        f"{raised}; K5, K6 launched in each rank: {launched}")
+    if not (err <= TRAIN_RTOL * scale and loss_err <= TRAIN_RTOL and same
+            and repeat and raised and launched):
+        raise AssertionError("multiprocess: the fit steps on 2 ranks")
+
+    # Eager ms per fit step: 2 ranks (each rank's own CUDA events), one
+    # process on the 2x1 mesh over the card, unsharded.
+    def eager_ms(mesh):
+        problem = ranks.fit_problem("full", dev, mesh)
+        _, step = ranks.fit_step(problem, dev)
+        return common.wall_ms(lambda: step.run_eager(problem.targets), dev,
+                              ranks.TIMED_STEPS)
+
+    one = eager_ms(parallel.make_mesh(2, 1, devices=[dev, dev]))
+    alone = eager_ms(None)
+    two = [r["eager_ms"] for r in per_rank]
+    log("multiprocess", f"{card} | eager fit step, cow 128^2 x 4 views, "
+        f"CUDA events: 2 ranks (gloo, one card) "
+        + ", ".join(f"{ms:.4f}" for ms in two)
+        + f" ms (rank 0, rank 1); one process on the 2x1 mesh {one:.4f} ms; "
+        f"unsharded {alone:.4f} ms")
+    log("multiprocess", "NCCL not exercised: it takes one rank per card "
+        "and this host has one card (init_distributed raises, naming "
+        "backend=\"gloo\", when two ranks hold one card under NCCL)")
+    log("multiprocess", f"phase 17 took {time.perf_counter() - t_phase:.1f} "
+        "s")
 
 
 def loop_phase(dev, card, teapot):
@@ -2396,6 +2534,9 @@ def main():
 
     # 16. The sharded wrappers on meshes over the card.
     shard_phase(dev, card, teapot)
+
+    # 17. The sharded wrappers and the fit step across processes.
+    multiprocess_phase(dev, card)
     log("examples", f"the script took {time.perf_counter() - started:.1f} s")
 
     print(card, flush=True)

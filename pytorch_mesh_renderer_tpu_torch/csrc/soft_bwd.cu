@@ -237,8 +237,7 @@ __global__ void __launch_bounds__(kSoftThreads, 2) soft_bwd_kernel(
             const float di = 1.0f / fmaxf(d_norm, 1e-12f);
             const float ct = (dx * s.nx + dy * s.ny + dz * s.nz) * di;
             const float ndl = fminf(fmaxf(ct, 0.0f), 1.0f);
-            const float dndl =
-                (ct > 0.0f && ct < 1.0f) ? dlight_sum * lt.w : 0.0f;
+            const float dndl = clip01_grad(ct) * (dlight_sum * lt.w);
             dint = dlight_sum * ndl;
             ddx = dndl * (s.nx * di - ct * dx * di * di);
             ddy = dndl * (s.ny * di - ct * dy * di * di);

@@ -216,15 +216,26 @@ __device__ __forceinline__ int stage_rows(const float* __restrict__ rows_b,
   return n_kept;
 }
 
-// Squared distance from (px, py) to segment [a, b] and the clipped offset
-// t of the nearest point (`_segment_sq_dist`, :216-231).
+// The derivative of clip(x, 0, 1) as `jnp.clip` takes it (and
+// `math_utils.clip`): 1 strictly inside (0, 1), 1/2 at exactly 0 or 1
+// (lax.max and lax.min split a tie evenly), 0 outside.
+__device__ __forceinline__ float clip01_grad(float x) {
+  if (x > 0.0f && x < 1.0f) return 1.0f;
+  return x == 0.0f || x == 1.0f ? 0.5f : 0.0f;
+}
+
+// Squared distance from (px, py) to segment [a, b], the clipped offset t
+// of the nearest point (`_segment_sq_dist`, :216-231) and the derivative
+// of the clip at the unclipped offset (`clip01_grad`).
 __device__ __forceinline__ float segment_sq_dist(float px, float py,
                                                  float ax, float ay,
                                                  float bx, float by,
-                                                 float inv_len2, float* t) {
+                                                 float inv_len2, float* t,
+                                                 float* dt_clip) {
   const float abx = bx - ax;
   const float aby = by - ay;
   float tt = ((px - ax) * abx + (py - ay) * aby) * inv_len2;
+  *dt_clip = clip01_grad(tt);
   tt = fminf(fmaxf(tt, 0.0f), 1.0f);
   const float nx = ax + tt * abx - px;
   const float ny = ay + tt * aby - py;
@@ -241,6 +252,7 @@ struct SoftGeometry {
   float bc[3];  // screen barycentrics
   float cb[3];  // chosen barycentrics: bc inside, the nearest edge's outside
   float t01, t12, t20;
+  float dt_clip[3];  // clip01_grad of each edge's unclipped offset
   int pick;  // nearest edge: 0 for v0v1, 1 for v1v2, 2 for v2v0
   // Bit e set where edge e's distance equals sq_dist: two or three bits at
   // an exact tie, among which the backward splits sq_dist's cotangent
@@ -270,11 +282,14 @@ __device__ __forceinline__ SoftGeometry soft_geometry(const float* r,
   g.bc[2] = r[6] * px + r[7] * py + r[8];
   g.inside = g.bc[0] >= 0.0f && g.bc[1] >= 0.0f && g.bc[2] >= 0.0f;
   const float d01 = segment_sq_dist(px, py, r[9], r[10], r[11], r[12],
-                                    r[56], &g.t01);
+                                    r[56], &g.t01,
+                                    &g.dt_clip[0]);
   const float d12 = segment_sq_dist(px, py, r[11], r[12], r[13], r[14],
-                                    r[57], &g.t12);
+                                    r[57], &g.t12,
+                                    &g.dt_clip[1]);
   const float d20 = segment_sq_dist(px, py, r[13], r[14], r[9], r[10],
-                                    r[58], &g.t20);
+                                    r[58], &g.t20,
+                                    &g.dt_clip[2]);
   const bool p01 = d01 <= d12 && d01 <= d20;
   const bool p12 = !p01 && d12 <= d20;
   g.pick = p01 ? 0 : (p12 ? 1 : 2);
@@ -390,7 +405,7 @@ __device__ __forceinline__ void edge_gradients(const float* r,
     if constexpr (kWithT) {
       const float qx = px - ax;
       const float qy = py - ay;
-      const float dtg = (t > 0.0f && t < 1.0f) ? dts[e] : 0.0f;
+      const float dtg = g.dt_clip[e] * dts[e];
       const float inv_len2 = r[cols[e][4]];
       da_x = dtg * (-abx - qx + 2.0f * t * abx) * inv_len2;
       da_y = dtg * (-aby - qy + 2.0f * t * aby) * inv_len2;

@@ -19,6 +19,7 @@ import torch
 from .. import config as config_lib
 from ..utils.capture import constant
 from . import camera
+from .math_utils import clip
 from .mesh import int32_index
 from .rasterize_barycentric_cuda import (rasterize_barycentric_cuda,
                                          rasterize_barycentric_torch)
@@ -129,7 +130,7 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
             image_height, row_offset=row_offset, full_height=full_height,
             triangle_chunk=cfg.triangle_chunk)
 
-    alphas = torch.clamp(torch.sum(2.0 * bc, dim=-1), 0.0, 1.0)[..., None]
+    alphas = clip(torch.sum(2.0 * bc, dim=-1), 0.0, 1.0)[..., None]
     if torch.is_tensor(background_value) and background_value.device != device:
         raise ValueError(
             f"background_value lies on {background_value.device}, but the "

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.capture import constant
-from .math_utils import normalize
+from .math_utils import clip, normalize
 
 
 def phong_shader(normals, alphas, pixel_positions, light_positions,
@@ -60,7 +60,7 @@ def phong_shader(normals, alphas, pixel_positions, light_positions,
         light_positions[:, :, None, :] - pixel_positions[:, None, :, :],
         p=2, dim=3)  # [B, L, P, 3]
     # Clamp: light contributes only when facing the surface.
-    normals_dot_lights = torch.clamp(
+    normals_dot_lights = clip(
         torch.sum(normals[:, None, :, :] * directions_to_lights, dim=3),
         0.0, 1.0)  # [B, L, P]
     diffuse_output = (
@@ -81,7 +81,7 @@ def phong_shader(normals, alphas, pixel_positions, light_positions,
             dim=3)  # [B, L, P]
         # L2-normalized across the pixel axis before clamping, as in the
         # JAX package and its reference (render.py:342-348).
-        reflection_dot_camera = torch.clamp(
+        reflection_dot_camera = clip(
             normalize(reflection_dot_camera, p=2, dim=2), 0.0, 1.0)
         # Specular only contributes where diffuse does.
         reflection_dot_camera = torch.where(
@@ -117,4 +117,4 @@ def tone_mapper(image, gamma):
     image_max = torch.amax(corrected_image.reshape(batch_size, -1), dim=1)
     safe_max = torch.where(image_max > 0.0, image_max, 1.0)
     scaled_image = corrected_image / safe_max.reshape(batch_size, 1, 1, 1)
-    return torch.clamp(scaled_image, 0.0, 1.0)
+    return clip(scaled_image, 0.0, 1.0)

@@ -26,6 +26,7 @@ import torch
 
 from .. import config as config_lib
 from . import camera
+from .math_utils import clip
 from .rasterize import select_backend
 from .soft_rasterize_cuda import (EPS, soft_rasterize,  # noqa: F401
                                   soft_rasterize_silhouette)
@@ -51,7 +52,7 @@ def point_to_segment_nearest(p, a, b):
     len_ab = torch.sqrt(torch.sum(ab * ab, dim=-1))
     n = ab / torch.clamp(len_ab, min=1e-12)[..., None]
     t = torch.sum((p - a) * n, dim=-1) / torch.clamp(len_ab, min=1e-12)
-    t = torch.clamp(t, 0.0, 1.0)
+    t = clip(t, 0.0, 1.0)
     return a + t[..., None] * ab, t
 
 

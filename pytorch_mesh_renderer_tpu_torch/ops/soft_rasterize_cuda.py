@@ -55,6 +55,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..utils import kernels
+from .math_utils import clip
 from .mesh import gather
 from .rasterize_cuda import check_kernel_operands
 
@@ -195,17 +196,10 @@ def _safe_sqrt(x):
                        0.0)
 
 
-def _clip01(x):
-    """clip(x, 0, 1) passing gradient only strictly inside (0, 1): the
-    kernels' t and ndl gates."""
-    return torch.where((x > 0.0) & (x < 1.0), x,
-                       torch.clamp(x, 0.0, 1.0).detach())
-
-
 def _segment_sq_dist(px, py, ax, ay, bx, by, inv_len2):
     abx = bx - ax
     aby = by - ay
-    t = _clip01(((px - ax) * abx + (py - ay) * aby) * inv_len2)
+    t = clip(((px - ax) * abx + (py - ay) * aby) * inv_len2, 0.0, 1.0)
     nx = ax + t * abx - px
     ny = ay + t * aby - py
     return nx * nx + ny * ny, t
@@ -283,7 +277,7 @@ def _chunk_quantities(blk, px, py, lights, sigma, gamma, sq_blur, shade):
         d_inv = 1.0 / torch.clamp(
             _safe_sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]), min=1e-12)
         ct = (d[0] * n[0] + d[1] * n[1] + d[2] * n[2]) * d_inv
-        light_sum = light_sum + _clip01(ct) * light(3)
+        light_sum = light_sum + clip(ct, 0.0, 1.0) * light(3)
     logit = torch.where(valid, z / gamma, NEG_BIG)
     return coverage, logit, tuple(c * light_sum for c in color)
 

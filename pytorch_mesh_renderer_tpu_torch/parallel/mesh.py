@@ -27,16 +27,27 @@ Several processes: `init_distributed` wraps
 `torch.distributed.init_process_group` and gathers every rank's local
 devices into a global list of `ProcessDevice`s, which the default lists
 then are and which `order_devices_for_dcn` orders so that "space" stays
-within a process. The sharded wrappers run every cell on this process's
-devices, and on a mesh that holds another process's device they run
-nothing and raise `NotImplementedError` (ROADMAP.md Queue 1,
-"multi-process execution").
+within a process. Every rank then runs the same program on the same
+global tensors, as every JAX process does. Each cell of a mesh is either
+this rank's (an entry of this process: a `torch.device`, or a
+`ProcessDevice` of this rank) or another rank's (`owner`), and the
+sharded wrappers render this rank's cells only: `parallel/collectives.py`
+assembles every rank's cells on every rank and adds the ranks' partial
+gradients, the collectives that XLA inserts. A mesh whose entries all
+belong to this process runs every cell here, as before, with no
+collective. An entry that names a rank outside the group (or, with no
+group, any rank but 0) raises `ValueError`.
+
+Ranks that share one card take `backend="gloo"` (NCCL refuses two ranks
+on one card, and `init_distributed` then raises, naming gloo); NCCL takes
+one rank per card. `utils/ranks.py` starts N ranks of a job.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 
 import numpy as np
 import torch
@@ -138,10 +149,31 @@ def single_device_mesh() -> Mesh:
     return make_mesh(data=1, space=1, devices=global_devices()[:1])
 
 
+def _card(device):
+    """What names a card across processes: its UUID where torch reports
+    one, else its index (None for the CPU)."""
+    if device.type != "cuda":
+        return None
+    uuid = getattr(torch.cuda.get_device_properties(device), "uuid", None)
+    return str(uuid) if uuid is not None else f"cuda:{device.index}"
+
+
+def shared_cards(gathered):
+    """{(host, card): [ranks]} of the cards that more than one rank holds,
+    from each rank's (host, [(device name, card), ...]) in rank order."""
+    holders: dict = {}
+    for rank, (host, devices) in enumerate(gathered):
+        for _, card in devices:
+            if card is not None:
+                holders.setdefault((host, card), []).append(rank)
+    return {key: ranks for key, ranks in holders.items() if len(ranks) > 1}
+
+
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
-                     local_device_ids=None) -> None:
+                     local_device_ids=None, backend: str | None = None
+                     ) -> None:
     """Opt-in multi-process initialization.
 
     Wraps `torch.distributed.init_process_group`: call it once per process
@@ -149,11 +181,15 @@ def init_distributed(coordinator_address: str | None = None,
     `MASTER_ADDR`/`MASTER_PORT` environment, `env://`), the world size
     (else `WORLD_SIZE`, default 1) and this process's rank (else `RANK`,
     default 0). The process's devices are the CUDA devices of
-    `local_device_ids` (default: every CUDA device), else the CPU; the
-    group takes NCCL for CUDA devices and gloo otherwise. Then every
-    rank's devices are gathered once (`all_gather_object`), so
+    `local_device_ids` (default: every CUDA device), else the CPU.
+    `backend` None takes NCCL for CUDA devices and gloo for the CPU;
+    "gloo" may also serve CUDA devices, for ranks that share one card
+    (the collectives then pass through host memory). Then every rank's
+    devices are gathered once (`all_gather_object`, over gloo), so
     `global_devices()`, `make_mesh` and `make_multihost_mesh` span every
-    process.
+    process. Under NCCL, two ranks that hold one card raise
+    `RuntimeError` (naming `backend="gloo"`) after the group is torn
+    down: nothing switches transport by itself.
 
     Safe to call when already initialized (a no-op) and in a
     single-process run (num_processes=1).
@@ -166,6 +202,8 @@ def init_distributed(coordinator_address: str | None = None,
     else:
         local = _local_devices()
     cuda = local[0].type == "cuda"
+    if backend is None:
+        backend = "nccl" if cuda else "gloo"
     if cuda:
         torch.cuda.set_device(local[0])
     init_method = (f"tcp://{coordinator_address}" if coordinator_address
@@ -175,14 +213,28 @@ def init_distributed(coordinator_address: str | None = None,
     rank = (process_id if process_id is not None
             else int(os.environ.get("RANK", "0")))
     torch.distributed.init_process_group(
-        "nccl" if cuda else "gloo", init_method=init_method,
-        world_size=world, rank=rank)
+        backend, init_method=init_method, world_size=world, rank=rank)
+    # Gathered over gloo: an NCCL collective would fail on a shared card
+    # before the check below could name it.
+    group = (None if torch.distributed.get_backend() == "gloo"
+             else torch.distributed.new_group(backend="gloo"))
     gathered = [None] * world
-    torch.distributed.all_gather_object(gathered, [str(d) for d in local])
+    torch.distributed.all_gather_object(
+        gathered, (socket.gethostname(), [(str(d), _card(d)) for d in local]),
+        group=group)
+    shared = shared_cards(gathered)
+    if shared and torch.distributed.get_backend() == "nccl":
+        torch.distributed.destroy_process_group()
+        (host, card), ranks = next(iter(shared.items()))
+        raise RuntimeError(
+            f"ranks {ranks} hold one card ({card} on {host}), which NCCL "
+            "refuses; give each rank its own card (local_device_ids), or "
+            "call init_distributed(..., backend=\"gloo\") for ranks that "
+            "share a card")
     _GLOBAL_DEVICES = [
         ProcessDevice(proc, i, torch.device(name)) for i, (proc, name) in
-        enumerate((p, name) for p, names in enumerate(gathered)
-                  for name in names)]
+        enumerate((p, name) for p, (_, devices) in enumerate(gathered)
+                  for name, _ in devices)]
 
 
 def _process_of(device):
@@ -232,17 +284,30 @@ def make_multihost_mesh(space: int = 1, devices=None) -> Mesh:
     return make_mesh(space=space, devices=devs)
 
 
+def owner(mesh_device) -> int:
+    """The rank whose cell a mesh entry is: a `ProcessDevice`'s
+    process_index, which must name a rank of the group (0 when there is
+    none); this process's for a `torch.device`."""
+    if not isinstance(mesh_device, ProcessDevice):
+        return process_index()
+    rank = mesh_device.process_index
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+        if not 0 <= rank < world:
+            raise ValueError(
+                f"the mesh holds {mesh_device}, a device of rank {rank}, "
+                f"outside the group of {world} ranks")
+    elif rank != 0:
+        raise ValueError(
+            f"the mesh holds {mesh_device}, a device of rank {rank}, and "
+            "there is no process group: call init_distributed first")
+    return rank
+
+
 def local_device(mesh_device) -> torch.device:
-    """The `torch.device` of a mesh entry, which must belong to this
-    process."""
+    """The `torch.device` of a mesh entry on the process that owns it
+    (`owner`, which checks the entry's rank)."""
+    owner(mesh_device)
     if isinstance(mesh_device, ProcessDevice):
-        if mesh_device.process_index != process_index():
-            raise NotImplementedError(
-                f"the mesh holds {mesh_device}, a device of process "
-                f"{mesh_device.process_index}, and this is process "
-                f"{process_index()}: the sharded wrappers run one process's "
-                "cells only (ROADMAP.md Queue 1, \"multi-process "
-                "execution\": each rank renders its own cells and the "
-                "output is assembled with all_gather)")
         return mesh_device.device
     return mesh_device

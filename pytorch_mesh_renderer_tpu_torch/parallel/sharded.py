@@ -3,25 +3,34 @@
 Port of `pytorch_mesh_renderer_tpu/parallel/sharded.py`. The sharded
 wrappers `sharded_rasterize`, `sharded_soft_rasterize` and
 `sharded_soft_silhouette` (`sharded.py:73-210`) take a `parallel.Mesh`
-(parallel/mesh.py) and the global tensors on its first device, split the
-batch into `data` slices and the rows into `space` strips of H / s, run
-each cell's rasterizer on the cell's device (`row_offset = j * H / s`,
-`full_height = H`; the backend follows the device as everywhere in the
-port: the kernels on a card, with no fallback) and concatenate the cells
-back on the first device. Autograd through those copies and
-concatenations adds the strips' partial vertex gradients: the `psum`s
-that JAX inserts through `shard_map`. Shading, losses and the optimizer
-run on the assembled tensors, as they stay outside `shard_map` in JAX; so
-the specular shader's normalisation over all pixels needs no all-reduce.
-`shard_batch` and `replicate` place a pytree on the first device, where
-the caller's global tensors live (a mesh of one process keeps them in
-one place; `shard_batch` checks that axis 0 divides over `data`).
+(parallel/mesh.py) and the global tensors on this process's first mesh
+device, split the batch into `data` slices and the rows into `space`
+strips of H / s, run each cell's rasterizer on the cell's device
+(`row_offset = j * H / s`, `full_height = H`; the backend follows the
+device as everywhere in the port: the kernels on a card, with no
+fallback) and concatenate the cells on that first device. Autograd
+through those copies and concatenations adds the strips' partial vertex
+gradients: the `psum`s that JAX inserts through `shard_map`. Shading,
+losses and the optimizer run on the assembled tensors, as they stay
+outside `shard_map` in JAX; so the specular shader's normalisation over
+all pixels needs no all-reduce. `shard_batch` and `replicate` place a
+pytree on this process's first mesh device, where the caller's global
+tensors live (`shard_batch` checks that axis 0 divides over `data`).
+
+On a mesh that spans processes (after `init_distributed`; every rank
+runs the same program on the same global tensors) each rank renders only
+its own cells (`mesh.owner`): the tensors that enter the cells pass
+through `collectives.replicated`, whose backward adds their gradients over
+the ranks, and `collectives.assemble` gathers every rank's cells so that
+each rank holds the whole output, bit for bit the unsharded render. Every
+rank must own a cell of the mesh. On a mesh of one process nothing of this
+runs.
 
 A captured training step (below) may call a wrapper on a mesh over one
-card, repeated or 1x1; a capture of a wrapper on a mesh over several
+card, repeated or 1x1. A capture of a wrapper on a mesh over several
 distinct devices raises (ROADMAP.md Queue 1, "multi-card capture"), and
-a mesh that holds another process's device raises NotImplementedError
-(Queue 1, "multi-process execution").
+so does one on a mesh that spans processes, whose collectives cannot be
+captured: such a step runs eagerly, called as `step.run_eager(batch)`.
 
 `make_train_step` and `make_train_loop` port `sharded.py:212-285` in
 PyTorch's idiom: the parameters are tensors that a `torch.optim` optimizer holds;
@@ -63,11 +72,19 @@ from ..ops import camera
 from ..ops import rasterize as rasterize_lib
 from ..ops import soft_rasterize as soft_rasterize_lib
 from ..utils import capture
-from .mesh import DATA_AXIS, SPACE_AXIS, local_device
+from . import collectives
+from .mesh import DATA_AXIS, SPACE_AXIS, local_device, owner, process_index
 
 
 def _first_device(mesh):
-    return local_device(mesh.devices.flat[0])
+    """This process's first device of the mesh, in row-major order, after
+    checking every entry's rank."""
+    rank = process_index()
+    mine = [d for d in mesh.devices.flat if owner(d) == rank]
+    if not mine:
+        raise ValueError(f"no device of {mesh} belongs to process {rank}: "
+                         "every rank must own a cell of the mesh")
+    return local_device(mine[0])
 
 
 def _place(x, device):
@@ -84,8 +101,8 @@ def _place(x, device):
 
 def shard_batch(mesh, tree):
     """Places a pytree of batched tensors (axis 0 the batch) for a mesh:
-    on its first device, after checking that axis 0 divides over
-    "data"."""
+    on this process's first mesh device, after checking that axis 0
+    divides over "data"."""
     n_data = mesh.shape[DATA_AXIS]
     for leaf in tree_flatten(tree)[0]:
         if (torch.is_tensor(leaf) or isinstance(leaf, np.ndarray)) and (
@@ -98,15 +115,14 @@ def shard_batch(mesh, tree):
 
 
 def replicate(mesh, tree):
-    """Places a pytree (e.g. trainable params) for a mesh: on its first
-    device, from which every cell reads it."""
+    """Places a pytree (e.g. trainable params) for a mesh: on this
+    process's first mesh device, from which its cells read it."""
     device = _first_device(mesh)
     return tree_map(lambda x: _place(x, device), tree)
 
 
-def _cells(mesh, height, batch):
-    """(the mesh's local devices [data][space], the first device, rows per
-    strip, images per slice), after JAX's checks."""
+def _check_cells(mesh, height, batch):
+    """(rows per strip, images per slice), after JAX's checks."""
     n_space = mesh.shape[SPACE_AXIS]
     n_data = mesh.shape[DATA_AXIS]
     if height % n_space != 0:
@@ -116,28 +132,47 @@ def _cells(mesh, height, batch):
     if batch % n_data != 0:
         raise ValueError(
             f"batch={batch} must divide over the data axis ({n_data}).")
+    return height // n_space, batch // n_data
+
+
+def _run_cells(mesh, height, batch, capturing, inputs, render):
+    """render(device, images, row_offset, local_height, *inputs) per cell
+    of this process, on the cell's device; the cells concatenated on this
+    process's first mesh device, strips along axis 1 in order, slices
+    along axis 0 (`collectives.assemble` on a mesh that spans
+    processes, the inputs then passed through `collectives.replicated`)."""
+    local_h, per = _check_cells(mesh, height, batch)
+    first = _first_device(mesh)
+    rank = process_index()
+    owners = [[owner(d) for d in row] for row in mesh.devices]
     devices = [[local_device(d) for d in row] for row in mesh.devices]
-    return devices, devices[0][0], height // n_space, batch // n_data
-
-
-def _run_cells(mesh, height, batch, capturing, render):
-    """render(device, images, row_offset, local_height) per cell, on the
-    cell's device; the cells concatenated on the first device, strips
-    along axis 1 in order, slices along axis 0."""
-    devices, first, local_h, per = _cells(mesh, height, batch)
+    spans = any(r != rank for row in owners for r in row)
+    if capturing and spans:
+        raise RuntimeError(
+            f"a CUDA-graph capture of a sharded render on a mesh that spans "
+            f"processes ({mesh}) is not supported: its collectives cannot "
+            "be captured; run the step eagerly, step.run_eager(batch)")
     if capturing and len({d for row in devices for d in row}) > 1:
         raise RuntimeError(
             f"a CUDA-graph capture of a sharded render on a mesh over "
             f"several devices ({mesh}) is not supported (ROADMAP.md Queue "
-            "1, \"multi-card capture\"); run the step eagerly or on a mesh "
-            "over one card")
-    slices = []
-    for i, row in enumerate(devices):
-        images = slice(i * per, (i + 1) * per)
-        strips = [render(device, images, j * local_h, local_h).to(first)
-                  for j, device in enumerate(row)]
-        slices.append(torch.cat(strips, dim=1))
-    return torch.cat(slices, dim=0)
+            "1, \"multi-card capture\"); run the step eagerly, "
+            "step.run_eager(batch), or on a mesh over one card")
+
+    if spans:
+        inputs = collectives.replicated(*inputs)
+
+    def cell(i, j):
+        return render(devices[i][j], slice(i * per, (i + 1) * per),
+                      j * local_h, local_h, *inputs).to(first)
+
+    if spans:
+        own = [cell(i, j) for i, row in enumerate(owners)
+               for j, r in enumerate(row) if r == rank]
+        return collectives.assemble(owners, per, local_h, own)
+    return torch.cat([torch.cat([cell(i, j) for j in range(len(row))],
+                                dim=1) for i, row in enumerate(devices)],
+                     dim=0)
 
 
 def _on(x, device, images=None):
@@ -168,7 +203,8 @@ def sharded_rasterize(mesh, world_space_vertices, attributes, triangles,
     clip = camera.transform_homogeneous(camera_matrices,
                                         world_space_vertices)
 
-    def render(device, images, row_offset, local_h):
+    def render(device, images, row_offset, local_h, clip, attributes,
+               background_value):
         return rasterize_lib.rasterize_clip_space(
             _on(clip, device, images), _on(attributes, device, images),
             _triangles_on(triangles, device), image_width, local_h,
@@ -176,7 +212,8 @@ def sharded_rasterize(mesh, world_space_vertices, attributes, triangles,
             row_offset=row_offset, full_height=image_height)
 
     return _run_cells(mesh, image_height, world_space_vertices.shape[0],
-                      capture.capturing(clip), render)
+                      capture.capturing(clip),
+                      (clip, attributes, background_value), render)
 
 
 def sharded_soft_rasterize(mesh, world_space_vertices, triangles, normals,
@@ -193,18 +230,20 @@ def sharded_soft_rasterize(mesh, world_space_vertices, triangles, normals,
     clip = camera.transform_homogeneous(camera_matrices,
                                         world_space_vertices)
 
-    def render(device, images, row_offset, local_h):
+    def render(device, images, row_offset, local_h, clip, *rest):
+        *batched, sigma, gamma = rest
         return soft_rasterize_lib.rasterize_clip_space_batch(
             _on(clip, device, images), _triangles_on(triangles, device),
-            *(_on(x, device, images) for x in (
-                world_space_vertices, normals, diffuse_colors,
-                light_positions, light_intensities)),
-            image_width, local_h, _on(sigma_val, device),
-            _on(gamma_val, device), blur_radius=blur_radius, config=config,
-            row_offset=row_offset, full_height=image_height)
+            *(_on(x, device, images) for x in batched), image_width,
+            local_h, _on(sigma, device), _on(gamma, device),
+            blur_radius=blur_radius, config=config, row_offset=row_offset,
+            full_height=image_height)
 
     return _run_cells(mesh, image_height, world_space_vertices.shape[0],
-                      capture.capturing(clip), render)
+                      capture.capturing(clip),
+                      (clip, world_space_vertices, normals, diffuse_colors,
+                       light_positions, light_intensities, sigma_val,
+                       gamma_val), render)
 
 
 def sharded_soft_silhouette(mesh, world_space_vertices, triangles,
@@ -220,15 +259,15 @@ def sharded_soft_silhouette(mesh, world_space_vertices, triangles,
     clip = camera.transform_homogeneous(camera_matrices,
                                         world_space_vertices)
 
-    def render(device, images, row_offset, local_h):
+    def render(device, images, row_offset, local_h, clip, sigma):
         return soft_rasterize_lib.rasterize_silhouette_clip_space_batch(
             _on(clip, device, images), _triangles_on(triangles, device),
-            image_width, local_h, _on(sigma_val, device),
+            image_width, local_h, _on(sigma, device),
             blur_radius=blur_radius, config=config, row_offset=row_offset,
             full_height=image_height)
 
     return _run_cells(mesh, image_height, world_space_vertices.shape[0],
-                      capture.capturing(clip), render)
+                      capture.capturing(clip), (clip, sigma_val), render)
 
 
 def _params(optimizer):

@@ -262,9 +262,12 @@ SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
 # run through pixel centres (`on_edges_arrays`: a corner weight exactly 0,
 # where d|ow|/dow must be +1), and the pose fit's cube at angles 0, whose
 # pixel centres lie at exactly equal distance from two edges of a triangle
-# (the backward splits the squared distance's gradient between them).
+# (the backward splits the squared distance's gradient between them), and
+# one triangle whose clips meet their bounds (`t_bound_arrays`: an edge
+# offset t of exactly 0 and of exactly 1, light cosines of exactly 1 and
+# 0, where the derivative of the clip is 1/2).
 SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image", "on_edges",
-                    "pose_tie")
+                    "pose_tie", "t_bound")
 # The on_edges scene's image and soft parameters.
 ON_EDGES_SIZE = (45, 31)
 ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR = 1e-4, 1e-3, 0.05
@@ -361,6 +364,46 @@ def on_edges_arrays():
         intensities=rng.uniform(0.5, 1.5, (2, 3)).astype(np.float32))
 
 
+# The t_bound scene's image, soft parameters, and its pixels (row, column,
+# top-down) where the clips meet their bounds: t of edge v0v1 is exactly 0
+# and exactly 1 (the centres 0.005 below v0 and v1), the second light's
+# cosine is exactly 1 (the light stands on the triangle's normal through
+# the centre's surface point; the cosine is at its maximum there, so its
+# derivative is 0 but for rounding), and the third light's is exactly 0
+# at every pixel (it lies in the triangle's plane): "ndl0" names a pixel
+# inside the triangle.
+T_BOUND_SIZE = 8
+T_BOUND_SIGMA, T_BOUND_GAMMA, T_BOUND_BLUR = 3e-2, 1e-2, 0.01
+T_BOUND_PIXELS = {"t0": (3, 4), "t1": (3, 6), "ndl1": (2, 5),
+                  "ndl0": (2, 4)}
+
+
+def t_bound_arrays():
+    """One triangle in clip space (z 0.5, w 1) at whose pixel centres the
+    soft renderer's clips meet their bounds, as numpy arrays (the
+    arguments of `rasterize_clip_space_batch`, batch 1): NDC corners
+    (0.125, 0.13), (0.625, 0.13), (0.125, 0.625) on an 8x8 image, world
+    corners (0, 0, 0), (1, 0, 0), (0, 1, 0) with normals (0, 0, 1), seeded
+    colours, a light at (0.3, 0.2, 4), one at (0.5, 0.495, 4) (above
+    pixel T_BOUND_PIXELS["ndl1"]) and one at (2, 1, 0) (in the triangle's
+    plane), intensities 1, and a seeded loss weight
+    [1, 8, 8, 4] (`weights`) drawn after the colours."""
+    rng = np.random.default_rng(0)
+    corners = np.float32([[0.125, 0.13], [0.625, 0.13], [0.125, 0.625]])
+    clip = np.concatenate([corners, np.full((3, 1), 0.5, np.float32),
+                           np.ones((3, 1), np.float32)], axis=1)
+    colors = rng.uniform(0.2, 1.0, (1, 3, 3)).astype(np.float32)
+    weights = rng.uniform(-1.0, 1.0, (1, T_BOUND_SIZE, T_BOUND_SIZE, 4))
+    return dict(
+        clip=clip[None], triangles=np.int32([[0, 1, 2]]),
+        world=np.float32([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]]),
+        normals=np.float32([[[0, 0, 1]] * 3]), colors=colors,
+        lights=np.float32([[[0.3, 0.2, 4.0], [0.5, 0.495, 4.0],
+                             [2.0, 1.0, 0.0]]]),
+        intensities=np.ones((1, 3), np.float32),
+        weights=weights.astype(np.float32))
+
+
 def soft_scene(name, device):
     """A SoftScene by name: 'two_triangle' (tests/test_soft_pallas.py:20-41,
     16x16), 'cube' (64x48), 'random<L>' (the JAX suite's multi-tile scene
@@ -369,7 +412,8 @@ def soft_scene(name, device):
     frame), 'quad' (two triangles filling a 256x256 frame at four depths),
     'on_edges' (`on_edges_arrays`, at its own sigma, gamma and blur),
     'pose_tie' (bench.py's pose cube at angles 0 from (0, 0, 6) at 32x32,
-    sigma 1e-4, blur 0.01: render_silhouette's camera and defaults) or
+    sigma 1e-4, blur 0.01: render_silhouette's camera and defaults),
+    't_bound' (`t_bound_arrays`, at its own sigma, gamma and blur) or
     'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
     per-pass cap of 49,152, at 64x64). Inputs come from seeded numpy
     generators."""
@@ -446,6 +490,19 @@ def soft_scene(name, device):
         width = height = 32
         clip = clip_from_eye(world, [0.0, 0.0, 6.0], width, height)
         sigma, blur = 1e-4, 0.01
+    elif name == "t_bound":
+        arrays = t_bound_arrays()
+        clip, world, normals, colors = (
+            torch.tensor(arrays[k], **f32)
+            for k in ("clip", "world", "normals", "colors"))
+        tris = arrays["triangles"]
+        lights = torch.tensor(np.concatenate([
+            arrays["lights"], arrays["intensities"][..., None]], -1), **f32)
+        width = height = T_BOUND_SIZE
+        sigma, gamma, blur = T_BOUND_SIGMA, T_BOUND_GAMMA, T_BOUND_BLUR
+        # One triangle at one depth: the background weight sits on its
+        # floor, so d/dgamma and the z columns are f32 noise.
+        depth_matters = False
     elif name == "sphere":
         v, tris, _ = shapes.sphere(1.0, resolution=157)
         world = v[None].to(device)

@@ -646,7 +646,7 @@ def test_soft_kernels_match_plain_versions_at_k8_edges(dev, scene):
     soft_scene = test_utils.soft_scene(scene, dev)
     n_lights = {"random65": 65, "random0": 0}
     assert soft_scene.lights.shape[1] == n_lights.get(
-        scene, 3 if scene in ("empty_image", "on_edges") else 2)
+        scene, 3 if scene in ("empty_image", "on_edges", "t_bound") else 2)
     sil_splits = test_utils.soft_splits("soft_sil_bwd")
     fwd_splits = test_utils.soft_splits("soft_fwd")
     before = _soft_launches()

@@ -30,12 +30,14 @@ from pytorch_mesh_renderer_tpu_torch.ops import (  # noqa: F401
     soft_rasterize_cuda)
 from pytorch_mesh_renderer_tpu_torch.utils import (  # noqa: F401
     capture, checkpoint, convert, cost, device, fit_spread, kernels, native,
-    profiling, scenes, test_utils)
+    profiling, ranks, scenes, test_utils)
 from pytorch_mesh_renderer_tpu_torch.examples import (  # noqa: F401
     common, fit_shape_multiview, optimize_camera_pose, optimize_cube_rotation,
     optimize_teapot_rotation, render_teapot_hard, render_teapot_soft)
 from pytorch_mesh_renderer_tpu_torch import bench, parallel
 from pytorch_mesh_renderer_tpu_torch.parallel import mesh as device_mesh
+from pytorch_mesh_renderer_tpu_torch.parallel import (  # noqa: F401
+    collectives)
 from pytorch_mesh_renderer_tpu_torch.microbench import (
     mxu_edge, mxu_full, patch_scatter)
 

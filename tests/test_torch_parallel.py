@@ -23,10 +23,10 @@ import torch
 
 from pytorch_mesh_renderer_tpu import parallel as jparallel
 from pytorch_mesh_renderer_tpu_torch import parallel
-from pytorch_mesh_renderer_tpu_torch.models import shapes
 from pytorch_mesh_renderer_tpu_torch.ops import camera, mesh as mesh_ops
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize as rasterize_ops
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize
+from pytorch_mesh_renderer_tpu_torch.utils import ranks
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -36,39 +36,11 @@ def _cpu_mesh(data, space):
     return parallel.make_mesh(data, space, devices=[CPU] * (data * space))
 
 
-def _cube_scene(batch=4):
-    """tests/test_parallel.py's cube scene at 16x16, as numpy arrays:
-    (vertices, triangles, attributes, camera matrices)."""
-    verts, tris, _ = shapes.cube(2.0)
-    verts = verts[None].repeat(batch, 1, 1)
-    angles = torch.stack([torch.linspace(0.1, 0.5, batch),
-                          torch.linspace(-0.3, 0.4, batch),
-                          torch.zeros(batch)], dim=-1)
-    rot = camera.euler_matrices(angles)[:, :3, :3]
-    verts = torch.einsum("bij,bvj->bvi", rot, verts)
-    cams = camera.clip_space_transforms(
-        torch.tensor([[0.0, 0.0, 6.0]]).repeat(batch, 1),
-        torch.zeros(batch, 3), torch.tensor([[0.0, 1.0, 0.0]]).repeat(batch, 1),
-        torch.full([batch], 40.0), torch.full([batch], 0.01),
-        torch.full([batch], 10.0), 16, 16)
-    attrs = torch.linspace(0.0, 1.0, verts.shape[1] * 3).reshape(
-        1, verts.shape[1], 3).repeat(batch, 1, 1)
-    return (verts.numpy(), tris.numpy(), attrs.numpy(), cams.numpy())
-
-
-def _sphere_scene(batch=2):
-    """tests/test_parallel.py's sphere scene at 16x16: (vertices,
-    triangles, colours, lights, intensities, camera matrices)."""
-    verts, tris, _ = shapes.sphere(1.0, resolution=6)
-    verts = verts[None].repeat(batch, 1, 1)
-    cams = camera.clip_space_transforms(
-        torch.tensor([[0.0, 0.0, 4.0]]).repeat(batch, 1),
-        torch.zeros(batch, 3), torch.tensor([[0.0, 1.0, 0.0]]).repeat(batch, 1),
-        torch.full([batch], 40.0), torch.full([batch], 0.01),
-        torch.full([batch], 10.0), 16, 16)
-    return (verts.numpy(), tris.numpy(), np.full(verts.shape, 0.7, np.float32),
-            np.tile(np.float32([[[0.0, 3.0, 3.0]]]), [batch, 1, 1]),
-            np.ones([batch, 1], np.float32), cams.numpy())
+# tests/test_parallel.py's cube (16x16, batch 4) and sphere (16x16, batch
+# 2) scenes, as numpy arrays; tests/test_torch_multiprocess.py's ranks
+# render them too.
+_cube_scene = ranks.cube_scene
+_sphere_scene = ranks.sphere_scene
 
 
 def _t(x, grad=False):
@@ -295,13 +267,19 @@ def test_multihost_mesh_from_an_explicit_subset():
 
 
 def test_a_mesh_with_another_process_device_raises():
+    """Without a process group, a mesh entry of rank 1 names no live
+    process: the wrappers, shard_batch and replicate raise ValueError
+    (tests/test_torch_multiprocess.py runs such meshes over a group)."""
     verts, tris, _, _, _, cams = _sphere_scene()
     devs = [parallel.ProcessDevice(0, 0, CPU), parallel.ProcessDevice(1, 1,
                                                                       CPU)]
     mesh = parallel.make_multihost_mesh(space=1, devices=devs)
-    with pytest.raises(NotImplementedError, match="multi-process execution"):
+    with pytest.raises(ValueError, match="no process group"):
         parallel.sharded_soft_silhouette(mesh, _t(verts), _t(tris), _t(cams),
                                          16, 16, 1e-4)
+    for place in (parallel.shard_batch, parallel.replicate):
+        with pytest.raises(ValueError, match="a device of rank 1"):
+            place(mesh, {"v": _t(verts)})
 
 
 def test_init_distributed_in_one_process():
