@@ -58,7 +58,10 @@ The soft (SoftRas) renderer's phases follow:
                filling a 256x256 frame, a batch whose second image holds no
                valid pair, whose gradients must be exactly 0, and a sphere
                at 45x31 whose edges run through pixel centres, where a
-               corner weight is exactly 0: test_utils.on_edges_arrays), two
+               corner weight is exactly 0: test_utils.on_edges_arrays; the
+               pose cube's nearest-edge ties, clips at their bounds, and a
+               triangle beside a zero-length edge, a collinear triangle and
+               a duplicate: test_utils.SOFT_EDGE_SCENES), two
                row strips against the full image, the zero-triangle mesh, the
                256x256 batch-4 teapot and a sphere of 49,298 triangles at
                64x64 in one launch per kernel and split. K7 and K5 run at
@@ -188,13 +191,28 @@ The sharded wrappers follow:
                TRAIN_RTOL (soft), the ranks bit for bit equal, two runs in
                each rank with equal outputs and gradients within the same
                gate (K2 and K8 add with atomics), the kernels launched in
-               every rank; 5 eager Adam steps of the cow fit (128x128, 4
-               views) on 2 ranks, within TRAIN_RTOL of 5 unsharded steps,
-               the ranks' parameters bit for bit equal, two runs bit for
-               bit equal, and a capture on the mesh
-               raises naming step.run_eager; the eager fit step's ms on 2
-               ranks, in one process on the 2x1 mesh and unsharded. NCCL
-               (one rank per card) is not exercised on one card.
+               every rank. The training steps on 2 ranks (2x1) and on 4
+               (4x1), each captured in every rank as a chain of CUDA
+               graphs cut at its gathers (`parallel/sharded.py`): 5 Adam
+               steps of the cow fit (128x128, 4 views), eager twice, as 5
+               calls of the captured step and as one make_train_loop call
+               of 5, all bit for bit equal in every rank, the ranks bit
+               for bit equal and bit for bit 5 unsharded captured steps;
+               5 SGD steps of the hard teapot step (256x256 batch 4,
+               mean(rgb^2)), the ranks bit for bit equal, the captured
+               steps and the loop within GRAD_RTOL of the vertices' max
+               change of 5 unsharded captured steps (K2 adds with
+               atomics); a capture that meets other gathers than its
+               warm-up, or waits for the card, raises in every rank;
+               3 graphs and 2 gathers a step (the image's
+               assemble, the input gradients' replicated); K5, K6 and
+               K1, K2 launched in every rank. Then, beside the card's
+               name and power limit, each step's captured and eager ms on
+               2 and 4 ranks (each rank's CUDA events), the host's ms a
+               step waits for a graph to end and gathers, and its gathers
+               alone; the fit step's captured and eager ms in one process,
+               unsharded and on the 2x1 mesh over the card. NCCL (one rank
+               per card) is not exercised on one card.
 
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1634,8 +1652,9 @@ def multiprocess_phase(dev, card):
     (`utils/ranks.py`): 2 ranks, then 4, each a subprocess on the one card
     over gloo (NCCL refuses two ranks on one card), each with its own
     timeout, rendering its own cells; this process holds what they return
-    to its own unsharded runs on the kernels and times the eager fit
-    step."""
+    to its own unsharded runs on the kernels, holds their training steps,
+    captured as chains of graphs, to their eager steps and to the
+    unsharded captured steps, and times the steps."""
     import tempfile
 
     import torch
@@ -1656,8 +1675,10 @@ def multiprocess_phase(dev, card):
                 f"{time.perf_counter() - t0:.1f} s")
     cases = ranks.case_fns("full", dev, 1)
     launched_by = {"hard": ("rasterize_fused_fwd", "rasterize_fused_bwd"),
-               "soft": ("soft_fwd", "soft_bwd"),
-               "steps": ("soft_sil_fwd", "soft_sil_bwd")}
+                   "soft": ("soft_fwd", "soft_bwd"),
+                   "steps": ("soft_sil_fwd", "soft_sil_bwd"),
+                   "hard_steps": ("rasterize_fused_fwd",
+                                  "rasterize_fused_bwd")}
     for world, results in runs.items():
         for key in (k for k in results[0] if "/" in k):
             case, name = key.split("/")
@@ -1669,7 +1690,7 @@ def multiprocess_phase(dev, card):
             spread = max(r["spread"] for r in per_rank)
             launched = all(r["launches"][k] > 0 for r in per_rank
                            for k in launched_by[case])
-            if case == "steps":
+            if case in ranks.STEP_CASES:
                 continue
             start, render = cases[case]
             want, want_grad = ranks.output_and_grad(start, render, None,
@@ -1692,50 +1713,112 @@ def multiprocess_phase(dev, card):
                 raise AssertionError(f"multiprocess: {case} on {name} over "
                                      f"{world} ranks")
 
-    # The fit step on 2 ranks: 5 eager Adam steps, against 5 unsharded.
+    # The steps across ranks, captured as chains of graphs, against their
+    # eager steps and the unsharded captured steps.
     steps = ranks.STEPS["full"]
-    per_rank = [r["steps/2x1"] for r in runs[2]]
-    unsharded = ranks.fit_problem("full", dev, None)
-    losses, offsets = ranks.eager_steps(unsharded, dev, steps)
+    hard_case = cases["hard"]
+    unsharded = {
+        "steps": ranks.run_steps(ranks.fit_setup(
+            ranks.fit_problem("full", dev, None), dev), steps, "step"),
+        "hard_steps": ranks.run_steps(ranks.hard_setup(hard_case, None),
+                                      steps, "step")}
     torch.cuda.synchronize()
-    same = all(torch.equal(r["offsets"], per_rank[0]["offsets"])
-               and torch.equal(r["losses"], per_rank[0]["losses"])
-               for r in per_rank)
-    repeat = all(r["repeat"] and r["spread"] == 0.0 for r in per_rank)
-    scale = float(offsets.abs().max())
-    err = float((per_rank[0]["offsets"] - offsets.cpu()).abs().max())
-    loss_err = float(((per_rank[0]["losses"] - losses.cpu()).abs()
-                      / losses.cpu().abs()).max())
-    raised = all("step.run_eager" in (r["capture_error"] or "")
-                 for r in per_rank)
-    launched = all(r["launches"][k] > 0 for r in per_rank
-                   for k in launched_by["steps"])
-    log("multiprocess", f"fit step, cow 128^2 x 4 views, {steps} eager Adam "
-        f"steps on 2 ranks (2x1): offsets max abs {err:.3g} of max "
-        f"|unsharded| {scale:.4g} (gate {TRAIN_RTOL}), losses {loss_err:.3g} "
-        f"relative; ranks bit for bit equal: {same}; two runs equal: "
-        f"{repeat}; a capture on the mesh raises naming step.run_eager: "
-        f"{raised}; K5, K6 launched in each rank: {launched}")
-    if not (err <= TRAIN_RTOL * scale and loss_err <= TRAIN_RTOL and same
-            and repeat and raised and launched):
-        raise AssertionError("multiprocess: the fit steps on 2 ranks")
+    moved = float((unsharded["hard_steps"][1] - hard_case[0]).abs().max())
+    kinds = {"steps": ("fit step, cow 128^2 x 4 views, Adam", "offsets"),
+             "hard_steps": ("hard step, teapot 256^2 b4, SGD", "vertices")}
+    for world, results in runs.items():
+        for case in ranks.STEP_CASES:
+            (name,) = ranks.PLAN[("full", world)][case]
+            per_rank = [r[f"{case}/{name}"] for r in results]
+            first = per_rank[0]
+            want_losses, want = (t.cpu() for t in unsharded[case][:2])
+            runs_of = [(e[how]["losses"], e[how]["offsets"])
+                       for e in per_rank for how in ("step", "loop")]
+            ranks_equal = all(
+                torch.equal(e[how][k], first[how][k]) for e in per_rank
+                for how in ("step", "loop") for k in ("losses", "offsets")
+            ) and all(torch.equal(e[k], first[k]) for e in per_rank
+                      for k in ("losses", "offsets"))
+            if case == "steps":
+                # Every run bit for bit: eager (twice), step, loop, ranks,
+                # and the unsharded captured steps.
+                exact = all(e["repeat"] for e in per_rank) and all(
+                    torch.equal(e[how][k], e[k]) for e in per_rank
+                    for how in ("step", "loop") for k in ("losses", "offsets")
+                ) and torch.equal(first["step"]["offsets"], want) and (
+                    torch.equal(first["step"]["losses"], want_losses))
+                err, scale, gate = 0.0, float(want.abs().max()), 0.0
+                # A capture meeting other gathers than its warm-up, or
+                # waiting for the card, raises in every rank.
+                exact = exact and all(
+                    "where the warm-up met 2" in (
+                        e["capture_errors"]["mismatch"] or "")
+                    and e["capture_errors"]["sync"] is not None
+                    for e in per_rank)
+            else:
+                # K2's atomics: the step, the loop and the eager runs
+                # within GRAD_RTOL of the vertices' max change.
+                exact = True
+                err = max(float((o - want).abs().max())
+                          for _, o in runs_of + [(None, first["offsets"])])
+                err = max([err] + [e["spread"] for e in per_rank])
+                scale, gate = moved, GRAD_RTOL
+            loss_err = max(float(((l - want_losses).abs()
+                                  / want_losses.abs()).max())
+                           for l, _ in runs_of)
+            chained = all(e["graphs"] == 3 and [g[0] for g in e["gathers"]]
+                          == ["assemble", "replicated"]
+                          and e["gathers"] == first["gathers"]
+                          for e in per_rank)
+            launched = all(e["launches"][k] > 0 for e in per_rank
+                           for k in launched_by[case])
+            what, param = kinds[case]
+            log("multiprocess", f"{what}, {steps} steps on {world} ranks "
+                f"({name}), captured as {first['graphs']} graphs cut at the "
+                f"gathers {first['gathers']}: captured steps and the loop "
+                f"bit for bit the eager steps and the unsharded captured "
+                f"steps, and failed captures raise in every rank: "
+                f"{exact if case == 'steps' else 'not gated'}; "
+                f"{param} max abs {err:.3g} of the unsharded max change "
+                f"{scale:.4g} (gate {gate}), losses {loss_err:.3g} relative "
+                f"(gate {gate}); ranks bit for bit equal: {ranks_equal}; "
+                f"{launched_by[case]} launched in each rank: {launched}")
+            if not (exact and err <= gate * scale and loss_err <= gate
+                    and ranks_equal and chained and launched):
+                raise AssertionError(f"multiprocess: the {case} on {world} "
+                                     "ranks")
+            log("multiprocess", f"{card} | {what}, CUDA events, ms a step on "
+                f"{world} ranks (gloo, one card), rank by rank: captured "
+                + ", ".join(f"{e['captured_ms']:.4f}" for e in per_rank)
+                + "; eager " + ", ".join(f"{e['eager_ms']:.4f}"
+                                         for e in per_rank)
+                + "; the host waiting for a graph to end "
+                + ", ".join(f"{e['wait_ms']:.4f}" for e in per_rank)
+                + ", in the gathers " + ", ".join(f"{e['gather_ms']:.4f}"
+                                                  for e in per_rank)
+                + "; the gathers alone " + ", ".join(
+                    f"{e['gloo_ms']:.4f}" for e in per_rank)
+                + f"; {first['graphs']} graphs and {len(first['gathers'])} "
+                "gathers a step")
 
-    # Eager ms per fit step: 2 ranks (each rank's own CUDA events), one
-    # process on the 2x1 mesh over the card, unsharded.
-    def eager_ms(mesh):
+    # The fit step in one process: unsharded and on the 2x1 mesh over the
+    # card, captured and eager.
+    def fit_ms(mesh):
         problem = ranks.fit_problem("full", dev, mesh)
-        _, step = ranks.fit_step(problem, dev)
-        return common.wall_ms(lambda: step.run_eager(problem.targets), dev,
-                              ranks.TIMED_STEPS)
+        loss_fn, _, optimizer, batch = ranks.fit_setup(problem, dev)
+        step = parallel.make_train_step(loss_fn, optimizer)
+        eager = common.wall_ms(lambda: step.run_eager(batch), dev,
+                               ranks.TIMED_STEPS)
+        step(batch)  # the warm-up and the capture
+        return common.wall_ms(lambda: step(batch), dev,
+                              ranks.TIMED_STEPS), eager
 
-    one = eager_ms(parallel.make_mesh(2, 1, devices=[dev, dev]))
-    alone = eager_ms(None)
-    two = [r["eager_ms"] for r in per_rank]
-    log("multiprocess", f"{card} | eager fit step, cow 128^2 x 4 views, "
-        f"CUDA events: 2 ranks (gloo, one card) "
-        + ", ".join(f"{ms:.4f}" for ms in two)
-        + f" ms (rank 0, rank 1); one process on the 2x1 mesh {one:.4f} ms; "
-        f"unsharded {alone:.4f} ms")
+    alone = fit_ms(None)
+    one = fit_ms(parallel.make_mesh(2, 1, devices=[dev, dev]))
+    log("multiprocess", f"{card} | fit step, cow 128^2 x 4 views, CUDA "
+        f"events, one process: unsharded captured {alone[0]:.4f} ms, eager "
+        f"{alone[1]:.4f} ms; the 2x1 mesh over the card captured "
+        f"{one[0]:.4f} ms, eager {one[1]:.4f} ms")
     log("multiprocess", "NCCL not exercised: it takes one rank per card "
         "and this host has one card (init_distributed raises, naming "
         "backend=\"gloo\", when two ranks hold one card under NCCL)")

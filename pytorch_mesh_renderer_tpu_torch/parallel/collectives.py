@@ -23,20 +23,73 @@ bit for bit and the ranks' parameters stay bit-identical. Under gloo a
 CUDA tensor is copied to host memory for the collective and back (gloo's
 support for CUDA tensors differs by operation and version; gloo here only
 ever sees CPU tensors), which serves ranks that share one card. Under
-NCCL the collectives run on the card. Neither may be captured into a CUDA
-graph (`parallel/sharded.py` raises first).
+NCCL the collectives run on the card (unverified: it takes one card per
+rank).
+
+No collective is captured into a CUDA graph. A training step
+(`parallel/sharded.py`) captures a step that gathers as a chain of
+graphs cut at its gathers: while it captures, every gather goes through
+`_cut`, which ends the graph after the copy of the gather's input into a
+static buffer (pinned host memory under gloo) and begins the next with
+the copy of the gathered parts out of one; its replays run each gather
+between the graphs. A gather under any other capture raises. `gathers()`
+lists the gathers a block meets, in order.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 
-def _all_gather(tensor):
+class Gather(NamedTuple):
+    """A gather a step met: which collective, and its input's shape and
+    dtype."""
+    label: str  # "assemble" (the forward) or "replicated" (the backward)
+    shape: tuple
+    dtype: torch.dtype
+
+
+_met = None  # the list of the innermost `gathers` block, else None
+# While a training step captures: the callable every gather goes through
+# instead of gathering (tensor -> the parts, in rank order).
+_cut = None
+
+
+@contextlib.contextmanager
+def gathers():
+    """Collects into a list the `Gather` of each gather met in the block,
+    in order."""
+    global _met
+    outer, _met = _met, []
+    try:
+        yield _met
+    finally:
+        _met = outer
+
+
+def through_host(device):
+    """Whether a gather of tensors on `device` passes through host memory
+    (a card under gloo)."""
+    return torch.device(device).type == "cuda" and dist.get_backend() == "gloo"
+
+
+def _all_gather(tensor, label):
     """Every rank's `tensor` (same shape and dtype on every rank), in rank
     order, on `tensor`'s device."""
-    staged = tensor.is_cuda and dist.get_backend() == "gloo"
+    if _met is not None:
+        _met.append(Gather(label, tuple(tensor.shape), tensor.dtype))
+    if _cut is not None:
+        return _cut(tensor)
+    if tensor.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "a gather across processes under a CUDA-graph capture that is "
+            "not a training step's: capture the step through "
+            "parallel.make_train_step, which cuts its graph at each gather")
+    staged = through_host(tensor.device)
     src = (tensor.detach().cpu() if staged
            else tensor.detach().contiguous())
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]
@@ -55,7 +108,7 @@ class _Assemble(torch.autograd.Function):
                 counts[r] += 1
         padded = list(own) + [torch.zeros_like(own[0])] * (
             max(counts) - len(own))
-        parts = _all_gather(torch.stack(padded))
+        parts = _all_gather(torch.stack(padded), "assemble")
         taken = [0] * len(counts)
         slices, mine = [], []
         for i, row in enumerate(owners):
@@ -104,7 +157,7 @@ class _Replicated(torch.autograd.Function):
         out = [None] * len(grads)
         for ks in groups.values():
             flat = torch.cat([grads[k].reshape(-1) for k in ks])
-            parts = _all_gather(flat)
+            parts = _all_gather(flat, "replicated")
             total = parts[0].clone()
             for part in parts[1:]:
                 total += part

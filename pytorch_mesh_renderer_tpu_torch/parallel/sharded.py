@@ -27,10 +27,10 @@ rank must own a cell of the mesh. On a mesh of one process nothing of this
 runs.
 
 A captured training step (below) may call a wrapper on a mesh over one
-card, repeated or 1x1. A capture of a wrapper on a mesh over several
-distinct devices raises (ROADMAP.md Queue 1, "multi-card capture"), and
-so does one on a mesh that spans processes, whose collectives cannot be
-captured: such a step runs eagerly, called as `step.run_eager(batch)`.
+card, repeated or 1x1, and on a mesh that spans processes. A capture of a
+wrapper on a mesh over several distinct devices in one process raises
+(ROADMAP.md Queue 1, "multi-card capture"); such a step runs eagerly,
+called as `step.run_eager(batch)`.
 
 `make_train_step` and `make_train_loop` port `sharded.py:212-285` in
 PyTorch's idiom: the parameters are tensors that a `torch.optim` optimizer holds;
@@ -45,6 +45,26 @@ times, the counterpart of `lax.scan` over K steps, which in JAX exists to
 amortise the host's dispatch floor (`sharded.py:250-256`): a replay
 launches the step's hundreds of kernels in one call. On the CPU both run
 eagerly, the same function.
+
+On a mesh that spans processes the step meets gathers
+(`parallel/collectives.py`), which no graph holds. Its capture is a
+chain: graph 0, gather, graph 1, ..., graph n, one graph per stretch
+between gathers, all in one memory pool (`step.graph`, with `.graphs` and
+`.gathers`). The warm-up lists the gathers it meets
+(`collectives.gathers`), and the capture must meet the same ones in the
+same order, or it raises. At each gather the capture ends the graph after
+the copy of the gather's input into a static buffer (pinned host memory
+under gloo) and begins the next graph with the copy of the gathered parts
+out of one. A gather in the backward runs on autograd's device thread,
+on the stream being captured, so a chain is captured in CUDA's "relaxed"
+capture mode, which lets one thread end a capture that another began. A
+replay runs the graphs in turn: after each graph but the last it waits on
+an event for that graph alone, then gathers into the next graph's buffers
+(on the host under gloo; under NCCL on the card, unverified). The gathers
+copy the values the eager step's copy and `replicated` adds in rank order,
+so a replay computes what an eager step computes. A rank that stops short
+of a gather leaves the others waiting in it (`utils/ranks.run` stops
+ranks at their timeout).
 
 Nothing is donated (the JAX functions' `donate`): the updates happen in
 place, on the tensors the optimizer holds.
@@ -64,8 +84,11 @@ while capturing, once, and none of the replays.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ..ops import camera
@@ -140,19 +163,17 @@ def _run_cells(mesh, height, batch, capturing, inputs, render):
     of this process, on the cell's device; the cells concatenated on this
     process's first mesh device, strips along axis 1 in order, slices
     along axis 0 (`collectives.assemble` on a mesh that spans
-    processes, the inputs then passed through `collectives.replicated`)."""
+    processes, the inputs then passed through `collectives.replicated`).
+    A capture raises if this process's cells lie on several devices."""
     local_h, per = _check_cells(mesh, height, batch)
     first = _first_device(mesh)
     rank = process_index()
     owners = [[owner(d) for d in row] for row in mesh.devices]
     devices = [[local_device(d) for d in row] for row in mesh.devices]
     spans = any(r != rank for row in owners for r in row)
-    if capturing and spans:
-        raise RuntimeError(
-            f"a CUDA-graph capture of a sharded render on a mesh that spans "
-            f"processes ({mesh}) is not supported: its collectives cannot "
-            "be captured; run the step eagerly, step.run_eager(batch)")
-    if capturing and len({d for row in devices for d in row}) > 1:
+    mine = {d for row_owners, row in zip(owners, devices)
+            for r, d in zip(row_owners, row) if r == rank}
+    if capturing and len(mine) > 1:
         raise RuntimeError(
             f"a CUDA-graph capture of a sharded render on a mesh over "
             f"several devices ({mesh}) is not supported (ROADMAP.md Queue "
@@ -296,6 +317,107 @@ def _same_leaf(leaf, static):
 _MISSING = object()
 
 
+class _Chain:
+    """A step captured as CUDA graphs cut at the gathers that `met` lists
+    (the warm-up's `collectives.gathers`, in order): one graph when it is
+    empty. `replay()` runs the graphs in turn, each gather between them;
+    `wait_s` and `gather_s` add up the host seconds the replays spent
+    waiting for a graph to end and gathering."""
+
+    def __init__(self, device, met):
+        self.device = device
+        self.gathers = tuple(met)
+        self.graphs = []
+        self.open = False  # whether graphs[-1] is being captured
+        self.pool = torch.cuda.graph_pool_handle()
+        self.mode = "relaxed" if met else "global"
+        self.buffers = [self._buffers(g) for g in met]  # (src, parts, out)
+        self.event = torch.cuda.Event()
+        self.wait_s = self.gather_s = 0.0
+
+    def _buffers(self, gather):
+        """A gather's static tensors: its input, the parts the collective
+        writes (in pinned host memory under gloo) and the parts the next
+        graph reads (on the device)."""
+        staged = collectives.through_host(self.device)
+        host = dict(device="cpu", pin_memory=True)
+        where = host if staged else dict(device=self.device)
+        parts_shape = (dist.get_world_size(),) + gather.shape
+        src = torch.empty(gather.shape, dtype=gather.dtype, **where)
+        parts = torch.empty(parts_shape, dtype=gather.dtype, **where)
+        out = (torch.empty(parts_shape, dtype=gather.dtype,
+                           device=self.device) if staged else parts)
+        return src, parts, out
+
+    def _begin(self):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
+        self.graphs.append(graph)
+        self.open = True
+
+    def _end(self):
+        self.open = False
+        self.graphs[-1].capture_end()
+
+    def _cut(self, tensor):
+        """collectives._cut while capturing: ends the graph after copying
+        `tensor` into the gather's input and begins the next, which starts
+        by copying out the parts; returns them."""
+        k = len(self.graphs) - 1
+        met = (tuple(tensor.shape), tensor.dtype)
+        if k >= len(self.gathers) or self.gathers[k][1:] != met:
+            want = self.gathers[k] if k < len(self.gathers) else "none"
+            raise RuntimeError(
+                f"the capture met gather {k} of shape {met[0]} and dtype "
+                f"{met[1]} where the warm-up met {want}: a step must meet "
+                "the same gathers in every call")
+        src, parts, out = self.buffers[k]
+        src.copy_(tensor.detach(), non_blocking=True)
+        self._end()
+        self._begin()
+        if out is not parts:
+            out.copy_(parts, non_blocking=True)
+        return list(out.unbind(0))
+
+    def capture(self, fn):
+        """Captures fn() on the current stream as the chain."""
+        collectives._cut = self._cut
+        try:
+            self._begin()
+            fn()
+            self._end()
+        except BaseException:
+            if self.open:
+                self._end()  # raises, naming the failure, if it broke
+            raise
+        finally:
+            collectives._cut = None
+        if len(self.graphs) != len(self.gathers) + 1:
+            raise RuntimeError(
+                f"the capture met {len(self.graphs) - 1} gathers where the "
+                f"warm-up met {len(self.gathers)}")
+
+    def gather(self, k):
+        """Runs gather k from its input buffer into its parts (what a replay
+        runs between graphs k and k + 1)."""
+        src, parts, _ = self.buffers[k]
+        dist.all_gather(list(parts.unbind(0)), src)
+
+    def replay(self):
+        """Replays the graphs on the current stream, gathering between
+        them."""
+        for k, graph in enumerate(self.graphs[:-1]):
+            graph.replay()
+            t0 = time.perf_counter()
+            self.event.record()
+            self.event.synchronize()
+            t1 = time.perf_counter()
+            self.gather(k)
+            self.wait_s += t1 - t0
+            self.gather_s += time.perf_counter() - t1
+        self.graphs[-1].replay()
+
+
 class TrainStep:
     """`step(batch) -> loss` (0-D, on the parameters' device); see
     make_train_step."""
@@ -309,7 +431,7 @@ class TrainStep:
             raise ValueError(f"the optimizer's parameters lie on {devices}; "
                              "a step runs on one device")
         (self.device,) = devices
-        self.graph = None
+        self.graph = None  # the _Chain of graphs, once captured
         self.static = None  # (leaves, spec): the batch the graph reads
         self.static_loss = None
         self.constants = None  # capture.constant's arrays the graph reads
@@ -374,17 +496,24 @@ class TrainStep:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), collectives.gathers() as met:
             loss = self.run_eager(static_batch)
         current.wait_stream(side)
-        # The graph's backward allocates the gradients from its own pool.
+        # The graphs' backward allocates the gradients from their pool.
         self.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        with capture.hold() as constants, torch.cuda.graph(graph):
-            static_loss = self.loss_fn(self.params, static_batch)
-            static_loss.backward()
+        chain = _Chain(self.device, met)
+        outputs = []
+
+        def step():
+            outputs.append(self.loss_fn(self.params, static_batch))
+            outputs[0].backward()
             self.optimizer.step()
-        self.graph, self.static_loss = graph, static_loss.detach()
+
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        with capture.hold() as constants, torch.cuda.stream(side):
+            chain.capture(step)
+        self.graph, self.static_loss = chain, outputs[0].detach()
         self.constants = constants
         self.hyperparameters = _hyperparameters(self.optimizer)
         return loss

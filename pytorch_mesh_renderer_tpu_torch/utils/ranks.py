@@ -24,8 +24,9 @@ gradients or parameters (`spread`: K2 and K8 add with float atomics, so
 on a card their gradients' last bits vary from run to run), and the
 kernels' launches in this rank) and `rank<r>.log` into `--out`;
 the caller holds them to its own unsharded run (`case_fns` builds the
-same renders without a mesh): `tests/test_torch_multiprocess.py` on the
-CPU, `chip_smoke.py` phase 17 on the card.
+same renders without a mesh, `run_steps` of `fit_setup` and `hard_setup`
+the same steps): `tests/test_torch_multiprocess.py` on the CPU, `chip_smoke.py`
+phase 17 and `tests/test_torch_cuda.py` on the card.
 
 The job ("small": `tests/test_torch_parallel.py`'s cube at 16x16 batch 4
 and sphere at 16x16, the cow fit at 16x16 and sphere resolution 8;
@@ -33,9 +34,15 @@ and sphere at 16x16, the cow fit at 16x16 and sphere resolution 8;
 cow fit at 128x128, 4 views, resolution 24) runs each case of `PLAN` on
 each of its meshes (`make_mesh`), twice: "hard" (the hard rasterizer, or
 render), "soft" (the soft rasterizer, or render) and "silhouette", each
-output with the vertex gradient of mean(out^2), and "steps" (eager Adam
-steps of the cow fit through `step.run_eager`). On a card it also shows that a captured step on the
-mesh raises, and times the eager fit step.
+output with the vertex gradient of mean(out^2); "steps" (Adam steps of
+the cow fit) and "hard_steps" (SGD steps on the vertices of mean(out^2)
+of the hard case), eager through `step.run_eager`. Each step case also
+lists the gathers its step meets (on the CPU, `eager_gathers`: an eager
+step with the wrappers told that a capture is under way) and, on a card,
+takes the same steps captured (a chain of CUDA graphs cut at the
+gathers, `parallel/sharded.py`) through the step and through
+`make_train_loop`, and times the eager and the captured step, with the
+host's wait at the gathers.
 """
 
 from __future__ import annotations
@@ -59,18 +66,22 @@ MODULE = "pytorch_mesh_renderer_tpu_torch.utils.ranks"
 # (job, world) -> {case: [mesh names]}.
 PLAN = {
     ("small", 2): {"hard": ["2x1", "2x2list"], "soft": ["2x1", "2x2list"],
-                   "silhouette": ["2x1"], "steps": ["2x1"]},
+                   "silhouette": ["2x1"], "steps": ["2x1"],
+                   "hard_steps": ["2x1"]},
     ("small", 4): {"hard": ["4x1"], "soft": ["4x1"], "silhouette": ["4x1"],
-                   "steps": ["4x1"]},
+                   "steps": ["4x1"], "hard_steps": ["4x1"]},
     ("full", 2): {"hard": ["2x1", "2x2list"], "soft": ["2x1"],
-                  "steps": ["2x1"]},
-    ("full", 4): {"hard": ["4x1"]},
+                  "steps": ["2x1"], "hard_steps": ["2x1"]},
+    ("full", 4): {"hard": ["4x1"], "steps": ["4x1"], "hard_steps": ["4x1"]},
 }
+STEP_CASES = ("steps", "hard_steps")
 STEPS = {"small": 3, "full": 5}
 FIT_ARGS = {"small": ["--size", "16", "--resolution", "8"],
             "full": ["--size", "128", "--resolution", "24"]}
-# The eager fit step's timing on a card: calls per window.
-TIMED_STEPS = 10
+# The hard steps' SGD learning rate on the vertices.
+HARD_LR = 5.0
+# The steps' timing on a card: calls per window, windows, warm-up calls.
+TIMED_STEPS, TIMED_WINDOWS, TIMED_WARMUP = 10, 5, 3
 
 
 def make_mesh(name, devices=None):
@@ -243,42 +254,65 @@ def fit_problem(job, device, mesh):
     return fit_shape_multiview.Problem(args, device, mesh=mesh)
 
 
-def fit_step(problem, device):
-    """(offsets, step) of the fit: Adam at the fit's learning rate
-    (capturable on a card)."""
-    from .. import parallel
-
+def fit_setup(problem, device):
+    """(loss_fn, offsets, optimizer, batch) of the fit: Adam at the fit's
+    learning rate (capturable on a card) on offsets from zero."""
     offsets = torch.zeros_like(problem.verts0, requires_grad=True)
     extra = {"capturable": True} if device.type == "cuda" else {}
     optimizer = torch.optim.Adam([offsets], lr=problem.args.lr, **extra)
-    return offsets, parallel.make_train_step(problem.loss, optimizer)
+    return problem.loss, offsets, optimizer, problem.targets
 
 
-def eager_steps(problem, device, steps):
-    """(losses [steps], offsets) after `steps` eager Adam steps."""
-    offsets, step = fit_step(problem, device)
-    losses = torch.stack([step.run_eager(problem.targets)
-                          for _ in range(steps)])
-    return losses.detach(), offsets.detach()
+def hard_setup(case, mesh):
+    """(loss_fn, vertices, optimizer, batch) of the hard step on the hard
+    case (`case_fns`' (start, render)): SGD at HARD_LR on the vertices of
+    mean(render(vertices, mesh)^2)."""
+    start, render = case
+    vertices = start.detach().clone().requires_grad_(True)
+
+    def loss_fn(params, batch):
+        return torch.mean(render(params[0], mesh) ** 2)
+
+    return loss_fn, vertices, torch.optim.SGD([vertices], lr=HARD_LR), None
 
 
-def capture_error(problem, device):
-    """The message of the RuntimeError that capturing the fit step on its
-    mesh raises, None if none: on a card the step's first call (its eager
-    warm-up, then the capture); on the CPU, which captures nothing, the
-    loss with the wrappers told that a capture is under way."""
+def run_steps(setup, steps, how="eager"):
+    """(losses [steps], the parameter after them, the step's chain of
+    graphs or None): `steps` steps of `setup` (fit_setup's or hard_setup's
+    tuple), each an eager step (`how` "eager": step.run_eager), a call of
+    make_train_step's step ("step": on a card the first call runs eagerly
+    and captures, the others replay) or all in one call of
+    make_train_loop(steps) ("loop")."""
+    from .. import parallel
+
+    loss_fn, param, optimizer, batch = setup
+    if how == "loop":
+        loop = parallel.make_train_loop(loss_fn, optimizer, steps)
+        losses, step = loop(batch), loop.step
+    else:
+        step = parallel.make_train_step(loss_fn, optimizer)
+        call = step.run_eager if how == "eager" else step
+        losses = torch.stack([call(batch) for _ in range(steps)])
+    return losses.detach(), param.detach(), step.graph
+
+
+def eager_gathers(run):
+    """The gathers that `run()` meets with the wrappers told that a
+    capture is under way (on the CPU, which captures nothing, an eager
+    step stands in for the capture), as `listed` gives them."""
     from unittest import mock
 
-    try:
-        if device.type == "cuda":
-            fit_step(problem, device)[1](problem.targets)
-        else:
-            with mock.patch.object(capture, "capturing", return_value=True):
-                problem.loss([torch.zeros_like(problem.verts0)],
-                             problem.targets)
-    except RuntimeError as e:
-        return str(e)
-    return None
+    from ..parallel import collectives
+
+    with mock.patch.object(capture, "capturing", return_value=True), \
+            collectives.gathers() as met:
+        run()
+    return listed(met)
+
+
+def listed(gathers):
+    """`collectives.Gather`s as (label, shape, dtype name) tuples."""
+    return [(g.label, g.shape, str(g.dtype)) for g in gathers]
 
 
 def launch_counts():
@@ -291,6 +325,106 @@ def launch_counts():
             "soft_sil_fwd": sc.SIL_FWD_LAUNCHES,
             "soft_sil_bwd": sc.SIL_BWD_LAUNCHES,
             "soft_fwd": sc.FWD_LAUNCHES, "soft_bwd": sc.BWD_LAUNCHES}
+
+
+def _step_entry(job, device, case, hard_case, mesh):
+    """A step case's results in this rank: the eager steps twice, the
+    gathers a step meets and, on a card, the captured steps (through the
+    step and through the loop) and the times of the eager and the captured
+    step (CUDA events), with the host's ms a captured step waits for a
+    graph to end (`wait_ms`) and gathers (`gather_ms`), and the ms of its
+    gathers alone, without the card (`gloo_ms`)."""
+    from .. import parallel
+    from ..microbench import common
+
+    if case == "steps":
+        problem = fit_problem(job, device, mesh)
+
+        def setup():
+            return fit_setup(problem, device)
+    else:
+        def setup():
+            return hard_setup(hard_case, mesh)
+
+    steps = STEPS[job]
+    before = launch_counts()
+    runs = [run_steps(setup(), steps) for _ in range(2)]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    entry = dict(losses=runs[0][0].cpu(), offsets=runs[0][1].cpu(),
+                 repeat=all(torch.equal(a, b)
+                            for a, b in zip(runs[0][:2], runs[1][:2])),
+                 spread=float((runs[0][1] - runs[1][1]).abs().max()),
+                 launches={k: n - before[k]
+                           for k, n in launch_counts().items()})
+    if device.type != "cuda":
+        entry["gathers"] = eager_gathers(lambda: run_steps(setup(), 1))
+        return entry
+    for how in ("step", "loop"):
+        losses, param, chain = run_steps(setup(), steps, how)
+        entry[how] = dict(losses=losses.cpu(), offsets=param.cpu())
+    entry["gathers"] = listed(chain.gathers)
+    entry["graphs"] = len(chain.graphs)
+    loss_fn, _, optimizer, batch = setup()
+    step = parallel.make_train_step(loss_fn, optimizer)
+    timed = dict(iters=TIMED_STEPS, windows=TIMED_WINDOWS,
+                 warmup=TIMED_WARMUP)
+    entry["eager_ms"] = common.wall_ms(lambda: step.run_eager(batch), device,
+                                       **timed)
+    step(batch)  # the warm-up and the capture
+    step.graph.wait_s = step.graph.gather_s = 0.0
+    entry["captured_ms"] = common.wall_ms(lambda: step(batch), device,
+                                          **timed)
+    calls = TIMED_WARMUP + TIMED_WINDOWS * TIMED_STEPS
+    entry["wait_ms"] = step.graph.wait_s * 1e3 / calls
+    entry["gather_ms"] = step.graph.gather_s * 1e3 / calls
+    # The step's gathers alone, on the host, as many times.
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        for k in range(len(step.graph.gathers)):
+            step.graph.gather(k)
+    entry["gloo_ms"] = (time.perf_counter() - t0) * 1e3 / calls
+    if case == "steps":
+        entry["capture_errors"] = capture_errors(setup)
+    return entry
+
+
+def capture_errors(setup):
+    """On a card, the messages of the RuntimeErrors that two captures of a
+    chain raise, None where one does not raise: a step whose loss meets
+    its gathers in the warm-up only ("mismatch"), and one whose loss waits
+    for the card after the first gather ("sync"). Every rank's capture
+    fails alike, and a capture runs no collective, so no rank waits."""
+    from .. import parallel
+
+    def fails(wrap):
+        loss_fn, _, optimizer, batch = setup()
+        step = parallel.make_train_step(wrap(loss_fn), optimizer)
+        try:
+            step(batch)
+        except RuntimeError as e:
+            return str(e)
+        return None
+
+    def mismatch(loss_fn):
+        calls = []
+
+        def first_only(params, batch):
+            calls.append(None)
+            if len(calls) == 1:
+                return loss_fn(params, batch)
+            return (params[0] ** 2).sum()
+        return first_only
+
+    def sync(loss_fn):
+        def syncs(params, batch):
+            loss = loss_fn(params, batch)
+            if float(loss) < 0.0:  # the host waits for the card
+                raise AssertionError("a negative loss")
+            return loss
+        return syncs
+
+    return {"mismatch": fails(mismatch), "sync": fails(sync)}
 
 
 def _rank_main(args):
@@ -323,7 +457,7 @@ def _rank_main(args):
             torch.cuda.synchronize(device)
 
     for case, mesh_names in plan.items():
-        if case == "steps":
+        if case in STEP_CASES:
             continue
         start, render = cases[case]
         for name in mesh_names:
@@ -338,24 +472,10 @@ def _rank_main(args):
                 spread=float((runs[0][1] - runs[1][1]).abs().max()),
                 launches={k: n - before[k]
                           for k, n in launch_counts().items()})
-    for name in plan.get("steps", []):
-        problem = fit_problem(args.job, device, make_mesh(name))
-        before = launch_counts()
-        runs = [eager_steps(problem, device, STEPS[args.job])
-                for _ in range(2)]
-        sync()
-        entry = dict(losses=runs[0][0].cpu(), offsets=runs[0][1].cpu(),
-                     repeat=all(torch.equal(a, b) for a, b in zip(*runs)),
-                     spread=float((runs[0][1] - runs[1][1]).abs().max()),
-                     launches={k: n - before[k]
-                               for k, n in launch_counts().items()})
-        entry["capture_error"] = capture_error(problem, device)
-        if device.type == "cuda":
-            _, step = fit_step(problem, device)
-            entry["eager_ms"] = common.wall_ms(
-                lambda: step.run_eager(problem.targets), device,
-                TIMED_STEPS)
-        results[f"steps/{name}"] = entry
+    for case in STEP_CASES:
+        for name in plan.get(case, []):
+            results[f"{case}/{name}"] = _step_entry(
+                args.job, device, case, cases.get("hard"), make_mesh(name))
     torch.save(results, os.path.join(args.out, f"rank{args.rank}.pt"))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -447,6 +567,20 @@ def main(argv=None):
         print(f"{key}: ranks bit for bit equal {same}; two runs' outputs "
               f"equal {[r[key]['repeat'] for r in results]}, their "
               f"gradients' spread {[r[key]['spread'] for r in results]}")
+        entry = results[0][key]
+        if "gathers" in entry:
+            print(f"{key}: gathers {entry['gathers']}")
+        if "step" in entry:
+            captured = all(
+                torch.equal(r[key][how][k], r[key][k]) for r in results
+                for how in ("step", "loop") for k in ("losses", "offsets"))
+            print(f"{key}: {entry['graphs']} graphs a step; captured step "
+                  f"and loop equal the eager steps bit for bit {captured}; "
+                  "ms a step (eager, captured, wait, gather, gathers alone) "
+                  "by rank " + "; ".join(
+                      ", ".join(f"{r[key][k]:.4f}" for k in (
+                          "eager_ms", "captured_ms", "wait_ms", "gather_ms",
+                          "gloo_ms")) for r in results))
     return 0
 
 

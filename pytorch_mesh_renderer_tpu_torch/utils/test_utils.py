@@ -265,9 +265,11 @@ SOFT_SCENES = ("two_triangle", "cube", "random1", "random3")
 # (the backward splits the squared distance's gradient between them), and
 # one triangle whose clips meet their bounds (`t_bound_arrays`: an edge
 # offset t of exactly 0 and of exactly 1, light cosines of exactly 1 and
-# 0, where the derivative of the clip is 1/2).
+# 0, where the derivative of the clip is 1/2), and a triangle beside
+# degenerate ones (`zero_edge_arrays`: a zero-length edge, whose packed
+# reciprocal squared length is 1e24, a collinear triangle and a duplicate).
 SOFT_EDGE_SCENES = ("random65", "random0", "quad", "empty_image", "on_edges",
-                    "pose_tie", "t_bound")
+                    "pose_tie", "t_bound", "zero_edge")
 # The on_edges scene's image and soft parameters.
 ON_EDGES_SIZE = (45, 31)
 ON_EDGES_SIGMA, ON_EDGES_GAMMA, ON_EDGES_BLUR = 1e-4, 1e-3, 0.05
@@ -309,8 +311,9 @@ SOFT_DTABLE_GROUPS = (
 class SoftScene(NamedTuple):
     """A packed soft scene and how to compare its kernels.
 
-    depth_matters is False where every triangle lies at one depth: the
-    render then does not depend on gamma or z, and both routes return f32
+    depth_matters is False where no pixel blends two depths (every
+    triangle lies at one depth, or a pixel sees one triangle): the render
+    then does not depend on gamma or z, and both routes return f32
     cancellation noise for d/dgamma and the z columns (per-pixel terms
     W (shade - rgb) z / gamma^2 that cancel), which are not compared.
     """
@@ -404,6 +407,40 @@ def t_bound_arrays():
         weights=weights.astype(np.float32))
 
 
+# The zero_edge scene's image and soft parameters.
+ZERO_EDGE_SIZE = 12
+ZERO_EDGE_SIGMA, ZERO_EDGE_GAMMA, ZERO_EDGE_BLUR = 3e-3, 1e-2, 0.01
+
+
+def zero_edge_arrays():
+    """A triangle and three degenerate ones in clip space (w 1, so the NDC
+    corners are the clip corners exactly), as numpy arrays (the arguments
+    of `rasterize_clip_space_batch`, batch 1, CCW): triangle (0, 1, 2)
+    with NDC corners (-0.5, -0.5), (0.5, -0.5), (0, 0.6) at depths 0.2,
+    0.4, 0.3; (0, 1, 3) with v3 = v1, whose edge 1-3 has length 0;
+    (0, 4, 1) with v4 = (0, -0.5) on edge 0-1, collinear; and a duplicate
+    of (0, 1, 2). Seeded world corners, normals and colours, two lights,
+    their intensities and a seeded loss weight [1, 12, 12, 4]
+    (`weights`)."""
+    rng = np.random.default_rng(3)
+    clip = np.float32([[-0.5, -0.5, 0.2, 1.0], [0.5, -0.5, 0.4, 1.0],
+                       [0.0, 0.6, 0.3, 1.0], [0.5, -0.5, 0.4, 1.0],
+                       [0.0, -0.5, 0.3, 1.0]])
+    normals = rng.normal(size=(1, 5, 3)) + np.float32([0.0, 0.0, 2.0])
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    size = ZERO_EDGE_SIZE
+    return dict(
+        clip=clip[None], triangles=np.int32([[0, 1, 2], [0, 1, 3],
+                                             [0, 4, 1], [0, 1, 2]]),
+        world=rng.uniform(-1.0, 1.0, (1, 5, 3)).astype(np.float32),
+        normals=normals.astype(np.float32),
+        colors=rng.uniform(0.2, 1.0, (1, 5, 3)).astype(np.float32),
+        lights=np.float32([[[0.5, 1.0, 3.0], [-1.0, 0.5, 2.0]]]),
+        intensities=np.float32([[1.3, 0.7]]),
+        weights=rng.uniform(-1.0, 1.0, (1, size, size, 4)).astype(
+            np.float32))
+
+
 def soft_scene(name, device):
     """A SoftScene by name: 'two_triangle' (tests/test_soft_pallas.py:20-41,
     16x16), 'cube' (64x48), 'random<L>' (the JAX suite's multi-tile scene
@@ -413,7 +450,8 @@ def soft_scene(name, device):
     'on_edges' (`on_edges_arrays`, at its own sigma, gamma and blur),
     'pose_tie' (bench.py's pose cube at angles 0 from (0, 0, 6) at 32x32,
     sigma 1e-4, blur 0.01: render_silhouette's camera and defaults),
-    't_bound' (`t_bound_arrays`, at its own sigma, gamma and blur) or
+    't_bound' (`t_bound_arrays`, at its own sigma, gamma and blur),
+    'zero_edge' (`zero_edge_arrays`, at its own sigma, gamma and blur) or
     'sphere' (2 * 157^2 = 49,298 triangles, above the JAX package's
     per-pass cap of 49,152, at 64x64). Inputs come from seeded numpy
     generators."""
@@ -502,6 +540,21 @@ def soft_scene(name, device):
         sigma, gamma, blur = T_BOUND_SIGMA, T_BOUND_GAMMA, T_BOUND_BLUR
         # One triangle at one depth: the background weight sits on its
         # floor, so d/dgamma and the z columns are f32 noise.
+        depth_matters = False
+    elif name == "zero_edge":
+        arrays = zero_edge_arrays()
+        clip, world, normals, colors = (
+            torch.tensor(arrays[k], **f32)
+            for k in ("clip", "world", "normals", "colors"))
+        tris = arrays["triangles"]
+        lights = torch.tensor(np.concatenate([
+            arrays["lights"], arrays["intensities"][..., None]], -1), **f32)
+        width = height = ZERO_EDGE_SIZE
+        sigma, gamma, blur = ZERO_EDGE_SIGMA, ZERO_EDGE_GAMMA, ZERO_EDGE_BLUR
+        # A pixel sees triangle 0 and its duplicate, one shade at one
+        # depth (the degenerate triangles are not kept): the plain route's
+        # d/dgamma is -4.5e-3 in f32 and -1.6e-6 in f64, its z columns
+        # 1.8e-5 and 1.0e-8, noise beside the clip columns' 2.5.
         depth_matters = False
     elif name == "sphere":
         v, tris, _ = shapes.sphere(1.0, resolution=157)

@@ -36,12 +36,15 @@ tensor's max |value|, the table gradient's per group of columns that come
 from one input of the packing: clip, world, normals, colours
 (`test_utils.SOFT_DTABLE_GROUPS`; K8's atomic adds again, K6 sums in a
 fixed order and repeats bit for bit on the teapot, the cow fit's shape and
-the pose_tie scene). d/dgamma and the z columns are compared only where the triangles
-differ in depth: on the two-triangle scene every triangle lies at NDC z
-0.25, so the render does not depend on gamma at all and both routes return
-f32 cancellation noise (per-pixel terms W (shade - rgb) z / gamma^2 of ~4e2
-that cancel). The soft scenes and gates are `utils/test_utils`'s, shared
-with chip_smoke.py.
+the pose_tie scene). d/dgamma and the z columns are compared only where a
+pixel blends two depths: on the two-triangle scene every triangle lies at
+NDC z 0.25, and on the zero_edge scene a pixel sees one triangle and its
+duplicate, so the render does not depend on gamma at all and both routes
+return f32 cancellation noise (per-pixel terms W (shade - rgb) z /
+gamma^2 of ~4e2 that cancel). The zero_edge scene holds a zero-length
+edge, whose packed reciprocal squared length is 1e24: the kernels stay
+finite and within their gates there. The soft scenes and gates are
+`utils/test_utils`'s, shared with chip_smoke.py.
 
 The training step of `parallel.make_train_step` captures its gradient
 and update into a CUDA graph on the card: the captured hard and
@@ -51,6 +54,10 @@ captured inputs, and a step that cannot be captured raises; the captured
 cow-fit step repeats bit for bit. The sharded wrappers on 2x2, 4x1 and
 1x4 meshes over the card equal the unsharded renders bit for bit, and a
 sharded step captures on one card and refuses a mesh over two devices.
+On 2 and 4 gloo ranks sharing the card (`utils/ranks.py`) the steps
+capture as chains of three graphs cut at their two gathers: the cow
+fit's captured steps and loop equal its eager steps and the unsharded
+captured steps bit for bit, the hard step's within 1e-5.
 
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
@@ -1356,6 +1363,65 @@ def test_a_sharded_step_captures_on_one_card_and_refuses_two_devices(dev):
     with pytest.raises(RuntimeError, match="multi-card capture"):
         run(parallel.make_mesh(2, 1, devices=[dev, torch.device("cpu")]),
             True)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_captured_steps_across_ranks_equal_eager_and_unsharded_steps(
+        dev, world, tmp_path):
+    """`utils/ranks.py`'s small job on `world` gloo ranks sharing the card:
+    in each rank the step captures as a chain of three graphs cut at the
+    two gathers (the image's assemble, then the gradients' replicated).
+    For the cow fit, 3 captured steps and one make_train_loop call of 3
+    equal 3 run_eager steps bit for bit, the ranks are equal, and they
+    equal 3 unsharded captured steps bit for bit; a capture that meets
+    other gathers than its warm-up, or waits for the card, raises in every
+    rank. The hard step (K2 adds with atomics): the ranks bit for bit
+    equal, the captured steps within 1e-5 of the vertices' max change of
+    the unsharded captured steps."""
+    from pytorch_mesh_renderer_tpu_torch.utils import ranks
+
+    kernels.build()  # before the ranks, which load it
+    results = ranks.run(world, str(tmp_path), device="cuda", timeout=240.0)
+    steps = ranks.STEPS["small"]
+    cases = ranks.case_fns("small", dev, world)
+    for case in ranks.STEP_CASES:
+        (mesh,) = ranks.PLAN[("small", world)][case]
+        per_rank = [r[f"{case}/{mesh}"] for r in results]
+        first = per_rank[0]
+        for entry in per_rank:
+            assert entry["graphs"] == 3
+            assert [g[0] for g in entry["gathers"]] == ["assemble",
+                                                         "replicated"]
+            assert entry["gathers"] == first["gathers"]
+            for how in ("step", "loop"):
+                for key in ("losses", "offsets"):
+                    assert torch.equal(entry[how][key], first[how][key])
+                    if case == "steps":
+                        assert torch.equal(entry[how][key], entry[key])
+            assert entry["captured_ms"] > 0.0 and entry["wait_ms"] >= 0.0
+            if case == "steps":
+                # A capture that fails raises in every rank; none hangs.
+                errors = entry["capture_errors"]
+                assert "where the warm-up met 2" in errors["mismatch"]
+                assert errors["sync"] is not None
+        if case == "steps":
+            setup = ranks.fit_setup(ranks.fit_problem("small", dev, None),
+                                    dev)
+        else:
+            setup = ranks.hard_setup(cases["hard"], None)
+        start = setup[1].detach().clone()
+        losses, params, chain = ranks.run_steps(setup, steps, "step")
+        assert len(chain.graphs) == 1 and chain.gathers == ()
+        got_losses, got = first["step"]["losses"], first["step"]["offsets"]
+        if case == "steps":
+            assert torch.equal(got_losses, losses.cpu())
+            assert torch.equal(got, params.cpu())
+        else:
+            change = float((params - start).abs().max())
+            assert change > 0.0
+            assert float((got - params.cpu()).abs().max()) <= 1e-5 * change
+            torch.testing.assert_close(got_losses, losses.cpu(), rtol=1e-5,
+                                       atol=0)
 
 
 def test_backward_kernels_run_to_run_spread_is_recorded(dev):

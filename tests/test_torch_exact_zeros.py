@@ -27,6 +27,12 @@ exactly lo or hi (`torch.clamp` passes 1 there). The port clips through
     t-derivative is 0 at the nearest point), so K6 needs no gate;
   * the hard Phong shader's cosine and specular clips and the tone
     mapper's clip at 1.
+
+Degenerate triangles (`test_utils.zero_edge_arrays`: one with a
+zero-length edge, a collinear one and a duplicate, beside a triangle):
+JAX's soft gradient is NaN at the zero-length edge's corners, on both of
+its routes. The port's plain route is finite there and equals JAX's XLA
+route wherever that is finite.
 """
 
 import numpy as np
@@ -160,6 +166,71 @@ def test_soft_gradient_at_clip_bounds_matches_jax_xla(pixel):
     got = torch.autograd.functional.jacobian(
         torch_pixel, tuple(map(torch.from_numpy, inputs)))
     _assert_jacobians_agree(got, want)
+
+
+ZERO_EDGE_KWARGS = dict(sigma_val=test_utils.ZERO_EDGE_SIGMA,
+                        blur_radius=test_utils.ZERO_EDGE_BLUR)
+
+
+@pytest.mark.parametrize("output", ["render", "silhouette"])
+def test_soft_gradient_beside_a_zero_length_edge_matches_jax_where_finite(
+        output):
+    """On test_utils.zero_edge_arrays (a triangle, one with a zero-length
+    edge, a collinear one and a duplicate), the gradient of the weighted
+    rgba (or alpha) with respect to every input equals jax.grad of the XLA
+    route within 1e-4 of its max |value| wherever JAX's is finite. JAX's is
+    NaN at the corners of the zero-length edge, vertices 1 and 3; the
+    port's is finite there, and 0 at vertex 3, which only the degenerate
+    triangle holds. The forwards agree within 1e-6."""
+    arrays = test_utils.zero_edge_arrays()
+    size = test_utils.ZERO_EDGE_SIZE
+    names = T_BOUND_INPUTS if output == "render" else ("clip",)
+    weights = arrays["weights"] if output == "render" else (
+        arrays["weights"][..., 3])
+
+    def jax_out(*inputs):
+        if output == "render":
+            return jsoft_rasterize.rasterize_clip_space_batch(
+                inputs[0], arrays["triangles"], *inputs[1:], size, size,
+                gamma_val=test_utils.ZERO_EDGE_GAMMA, config=XLA,
+                **ZERO_EDGE_KWARGS)
+        return jsoft_rasterize.rasterize_silhouette_clip_space_batch(
+            inputs[0], arrays["triangles"], size, size, config=XLA,
+            **ZERO_EDGE_KWARGS)
+
+    def torch_out(*inputs):
+        triangles = torch.from_numpy(arrays["triangles"])
+        if output == "render":
+            return soft_rasterize.rasterize_clip_space_batch(
+                inputs[0], triangles, *inputs[1:], size, size,
+                gamma_val=test_utils.ZERO_EDGE_GAMMA, **ZERO_EDGE_KWARGS)
+        return soft_rasterize.rasterize_silhouette_clip_space_batch(
+            inputs[0], triangles, size, size, **ZERO_EDGE_KWARGS)
+
+    inputs = [arrays[k] for k in names]
+    want = [np.asarray(g) for g in jax.grad(
+        lambda *x: jnp.sum(jax_out(*x) * weights),
+        argnums=tuple(range(len(inputs))))(*map(jnp.asarray, inputs))]
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in inputs]
+    out = torch_out(*leaves)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jax_out(*inputs)), rtol=0,
+                               atol=1e-6)
+    assert float(out.detach().max()) > 0.5
+    (out * torch.from_numpy(weights)).sum().backward()
+    scale = max(float(np.abs(w[np.isfinite(w)]).max()) for w in want)
+    assert scale > 0.0
+    for name, leaf, w in zip(names, leaves, want):
+        got = leaf.grad.numpy()
+        finite = np.isfinite(w)
+        assert np.isfinite(got).all(), name
+        assert float(np.abs(got - w)[finite].max()) <= 1e-4 * scale, name
+        if name == "clip":
+            assert sorted({int(v) for v in np.argwhere(~finite)[:, 1]}) == [
+                1, 3]
+            np.testing.assert_array_equal(got[0, 3], 0.0)
+        else:
+            assert finite.all(), name
 
 
 def _old_clip(x, lo, hi):

@@ -6,14 +6,19 @@ the explicit 2x2 list in which each rank holds its device twice) and 4
 ranks (the 4x1 mesh), each a process of its own that renders its own
 cells of `tests/test_torch_parallel.py`'s cube (16x16, batch 4) and
 sphere (16x16, batch 2; batch 4 on the 4x1 mesh) and takes three eager
-Adam steps of the cow fit (16x16, sphere resolution 8). This process
-holds what they return to the port's unsharded renders (bit for bit; the
-gradients within rtol 1e-4, atol 1e-6; the steps' offsets within 1e-4 of
-max |offsets|) and to the JAX package's sharded renders on the conftest's
-8 virtual CPU devices (1e-5 hard, 1e-4 soft, as tests/test_parallel.py;
-tests/test_torch_parallel.py holds the port's gradients to JAX's). The
-ranks' outputs, gradients and parameters are bit for bit equal, and two
-runs in each rank repeat bit for bit.
+Adam steps of the cow fit (16x16, sphere resolution 8) and three eager
+SGD steps on the cube's vertices. This process holds what they return to
+the port's unsharded renders (bit for bit; the gradients within rtol
+1e-4, atol 1e-6; the steps' parameters within 1e-4 of max |offsets| or
+of the vertices' max change) and to the JAX package's sharded renders on
+the conftest's 8 virtual CPU devices (1e-5 hard, 1e-4 soft, as
+tests/test_parallel.py; tests/test_torch_parallel.py holds the port's
+gradients to JAX's). The ranks' outputs, gradients and parameters are
+bit for bit equal, and two runs in each rank repeat bit for bit. Each
+step meets two gathers, the same on every rank, which a capture on the
+card cuts its graphs at: the forward's `assemble` of the image and the
+backward's `replicated` of the input gradients (`tests/test_torch_cuda.py`
+holds the captured steps on the card).
 """
 
 import concurrent.futures
@@ -32,7 +37,7 @@ CPU = torch.device("cpu")
 WORLDS = (2, 4)
 KEYS = [(world, case, mesh) for world in WORLDS
         for case, meshes in ranks.PLAN[("small", world)].items()
-        if case != "steps" for mesh in meshes]
+        if case not in ranks.STEP_CASES for mesh in meshes]
 MESH_SHAPES = {"2x1": (2, 1), "2x2list": (2, 2), "4x1": (4, 1)}
 
 
@@ -108,26 +113,69 @@ def test_sharded_wrapper_across_ranks_matches_unsharded_and_jax(
                                atol=tol)
 
 
+def _assert_step_gathers(per_rank, image_shape, params):
+    """Each rank's step met the forward's assemble of its own cells (the
+    image over its slice of the batch) and then the backward's replicated
+    of the input gradients, `params` floats: the same on every rank."""
+    for entry in per_rank:
+        assert entry["gathers"] == per_rank[0]["gathers"]
+    (assemble, image, dtype), (replicated, flat, flat_dtype) = (
+        per_rank[0]["gathers"])
+    assert (assemble, replicated) == ("assemble", "replicated")
+    assert image == image_shape and flat == (params,)
+    assert dtype == flat_dtype == "torch.float32"
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_eager_steps_across_ranks_match_unsharded_steps(runs, world):
     """Three eager Adam steps of the cow fit on the mesh: the ranks'
     offsets bit for bit equal, two runs equal, within 1e-4 of max |offsets|
-    of three unsharded steps; a capture on the mesh raises, naming
-    step.run_eager."""
+    of three unsharded steps; with the wrappers told that a capture is
+    under way the step does not raise, and meets the two gathers."""
     (mesh,) = ranks.PLAN[("small", world)]["steps"]
     per_rank = [r[f"steps/{mesh}"] for r in runs[0][world]]
     for entry in per_rank:
         assert entry["repeat"] and entry["spread"] == 0.0
         assert torch.equal(entry["offsets"], per_rank[0]["offsets"])
         assert torch.equal(entry["losses"], per_rank[0]["losses"])
-        assert "step.run_eager" in entry["capture_error"]
-    losses, offsets = ranks.eager_steps(ranks.fit_problem("small", CPU, None),
-                                        CPU, ranks.STEPS["small"])
+    problem = ranks.fit_problem("small", CPU, None)
+    # 4 views over the data axis, the clip vertices [4, V, 4] flattened.
+    _assert_step_gathers(per_rank, (1, 4 // world, 16, 16),
+                         4 * problem.verts0.shape[0] * 4)
+    losses, offsets, _ = ranks.run_steps(ranks.fit_setup(problem, CPU),
+                                         ranks.STEPS["small"])
     np.testing.assert_allclose(per_rank[0]["losses"].numpy(),
                                losses.numpy(), rtol=1e-4)
     scale = float(offsets.abs().max())
     assert scale > 0.0
     assert float((per_rank[0]["offsets"] - offsets).abs().max()) <= (
+        1e-4 * scale)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_hard_steps_across_ranks_match_unsharded_steps(runs, world):
+    """Three eager SGD steps on the cube's vertices of mean(image^2) of the
+    hard rasterizer on the mesh: the ranks bit for bit equal, two runs
+    equal, within 1e-4 of the vertices' max change of three unsharded
+    steps; the step meets the two gathers (the image, then the clip
+    vertices' gradient)."""
+    (mesh,) = ranks.PLAN[("small", world)]["hard_steps"]
+    per_rank = [r[f"hard_steps/{mesh}"] for r in runs[0][world]]
+    for entry in per_rank:
+        assert entry["repeat"] and entry["spread"] == 0.0
+        assert torch.equal(entry["offsets"], per_rank[0]["offsets"])
+        assert torch.equal(entry["losses"], per_rank[0]["losses"])
+    case = ranks.case_fns("small", CPU, world)["hard"]
+    verts = case[0]
+    _assert_step_gathers(per_rank, (1, 4 // world, 16, 16, 3),
+                         verts.shape[0] * verts.shape[1] * 4)
+    losses, moved, _ = ranks.run_steps(ranks.hard_setup(case, None),
+                                       ranks.STEPS["small"])
+    np.testing.assert_allclose(per_rank[0]["losses"].numpy(),
+                               losses.numpy(), rtol=1e-4)
+    scale = float((moved - verts).abs().max())
+    assert scale > 0.0
+    assert float((per_rank[0]["offsets"] - moved).abs().max()) <= (
         1e-4 * scale)
 
 
