@@ -370,39 +370,44 @@ def kernel_device_ms(by_name):
         for match in [KERNEL_NAME.search(name)] if match)
 
 
-def reset_hard_launch_counts():
-    from pytorch_mesh_renderer_tpu_torch.ops import (
-        rasterize_barycentric_cuda as rb)
-    from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
+HARD_KERNELS = ("rasterize_fused_fwd", "rasterize_fused_bwd",
+                "rasterize_bary_fwd", "rasterize_bary_bwd")
+SOFT_KERNELS = ("soft_sil_fwd", "soft_sil_bwd", "soft_fwd", "soft_bwd")
+# The launch counts (utils/profiling.counters) at each kernel's last reset.
+_LAUNCH_BASE = {}
 
-    rc.LAUNCHES = rc.BWD_LAUNCHES = 0
-    rb.FWD_LAUNCHES = rb.BWD_LAUNCHES = 0
+
+def _reset_launch_counts(kernels):
+    from pytorch_mesh_renderer_tpu_torch.utils import profiling
+
+    counts = profiling.counters()
+    _LAUNCH_BASE.update(
+        (name, counts.get("launches." + name, 0)) for name in kernels)
+
+
+def _launch_counts(kernels):
+    """Each kernel's launches since its last reset."""
+    from pytorch_mesh_renderer_tpu_torch.utils import profiling
+
+    counts = profiling.counters()
+    return {name: counts.get("launches." + name, 0)
+            - _LAUNCH_BASE.get(name, 0) for name in kernels}
+
+
+def reset_hard_launch_counts():
+    _reset_launch_counts(HARD_KERNELS)
 
 
 def hard_launch_counts():
-    from pytorch_mesh_renderer_tpu_torch.ops import (
-        rasterize_barycentric_cuda as rb)
-    from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
-
-    return {"rasterize_fused_fwd": rc.LAUNCHES,
-            "rasterize_fused_bwd": rc.BWD_LAUNCHES,
-            "rasterize_bary_fwd": rb.FWD_LAUNCHES,
-            "rasterize_bary_bwd": rb.BWD_LAUNCHES}
+    return _launch_counts(HARD_KERNELS)
 
 
 def reset_soft_launch_counts():
-    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-
-    sc.FWD_LAUNCHES = sc.BWD_LAUNCHES = 0
-    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+    _reset_launch_counts(SOFT_KERNELS)
 
 
 def soft_launch_counts():
-    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
-
-    return {"soft_sil_fwd": sc.SIL_FWD_LAUNCHES,
-            "soft_sil_bwd": sc.SIL_BWD_LAUNCHES,
-            "soft_fwd": sc.FWD_LAUNCHES, "soft_bwd": sc.BWD_LAUNCHES}
+    return _launch_counts(SOFT_KERNELS)
 
 
 def fit_phase(dev, card):
@@ -925,14 +930,13 @@ def microbench_phase(dev, card):
     from pytorch_mesh_renderer_tpu_torch.microbench import (
         patch_scatter as ps)
 
-    counters = ((me.LAUNCHES, "mxu_edge_"), (mf.LAUNCHES, "mxu_full_"),
-                (ps.LAUNCHES, ""))
+    kernels = (tuple("mxu_edge_" + v for v in me.VARIANTS)
+               + tuple("mxu_full_" + v for v in mf.VARIANTS) + ("patch_eval",))
     visits, chunk = 512, 8
     patch = ps.parse_patch("16x8")
 
     # The main path: each module's run, its launches counted from 0.
-    for counts, _ in counters:
-        counts.update((key, 0) for key in counts)
+    _reset_launch_counts(kernels)
     edge = me.run(visits, chunk, 30, dev.type)
     log("microbench", "mxu_edge " + json.dumps(edge))
     full = mf.run(visits, chunk, 30, dev.type)
@@ -944,8 +948,7 @@ def microbench_phase(dev, card):
     for config, (result, _) in patch_runs.items():
         log("microbench", f"patch_scatter {config} " + json.dumps(result))
     torch.cuda.synchronize()
-    launches = {prefix + key: n for counts, prefix in counters
-                for key, n in counts.items()}
+    launches = _launch_counts(kernels)
     if min(launches.values()) < 1:
         raise AssertionError(f"microbench: launches {launches}")
     if not full["covered_px"] > 0:

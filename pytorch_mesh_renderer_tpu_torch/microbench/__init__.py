@@ -17,7 +17,8 @@ The TPU's matrix unit (MXU) becomes the tensor cores, driven by
 cores. Each module builds the script's inputs from the same numpy seed,
 holds every CUDA kernel (`csrc/mxu_edge.cu`, `csrc/mxu_full.cu`,
 `csrc/patch_eval.cu`) beside its plain PyTorch version, counts its
-launches, and prints the script's JSON line:
+launches (`launches.<kernel>` in `utils/profiling.counters()`), and
+prints the script's JSON line:
 
     python -m pytorch_mesh_renderer_tpu_torch.microbench.mxu_edge
     python -m pytorch_mesh_renderer_tpu_torch.microbench.mxu_full

@@ -57,14 +57,11 @@ import json
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import common
 
 VARIANTS = ("fma", "tc_bf16", "tc_tf32x3")
-
-# Launches of each variant's kernel in this process; each wrapper adds one
-# per launch and nothing else touches them.
-LAUNCHES = {name: 0 for name in VARIANTS}
 
 # The kernels' decomposition (csrc/mxu_edge.cu): warps per CTA, each one
 # split of the visits; pixels per CTA (fma: PIX_PER_LANE a lane; tc: TILES
@@ -192,7 +189,7 @@ def launch_fma(data, visits, chunk):
     common.launch("mxu_edge_fma", data.device, data.data_ptr(),
                   out.data_ptr(), visits, chunk, edge_splits(visits),
                   common.PIXEL_SCALE)
-    LAUNCHES["fma"] += 1
+    profiling.count("launches.mxu_edge_fma")
     return out
 
 
@@ -210,7 +207,7 @@ def launch_tc(coeff, pix, visits, chunk, variant):
     common.launch("mxu_edge_tc", coeff.device, coeff.data_ptr(),
                   pix.data_ptr(), out.data_ptr(), visits, chunk,
                   edge_splits(visits), int(variant == "tc_bf16"))
-    LAUNCHES[variant] += 1
+    profiling.count("launches.mxu_edge_" + variant)
     return out
 
 

@@ -65,16 +65,11 @@ import numpy as np
 import torch
 
 from ..ops.barycentric import pixel_is_inside
-from ..utils import kernels
+from ..utils import kernels, profiling
 from ..utils.device import resolve_device
 from . import common
 
 VARIANTS = ("prod", "tc")
-
-# Launches of each variant's kernel in this process; each wrapper adds one
-# per launch (with its second pass, where it runs one) and nothing else
-# touches them.
-LAUNCHES = {name: 0 for name in VARIANTS}
 
 # fp32 operations per (triangle, pixel) pair read off the two bodies: the
 # three edge functions (12, prod only) and the inside test (6) for every
@@ -435,7 +430,7 @@ def launch_prod(data, visits, chunk, shape=None):
                   *(t.data_ptr() for t in part), z.data_ptr(),
                   ids.data_ptr(), w.data_ptr(), visits, chunk, splits, group,
                   split, common.PIXEL_SCALE)
-    LAUNCHES["prod"] += 1
+    profiling.count("launches.mxu_full_prod")
     return z, ids, w[0], w[1], w[2]
 
 
@@ -455,7 +450,7 @@ def launch_tc(coeff, visits, chunk):
                   part_z.data_ptr(), part_id.data_ptr(), part_w.data_ptr(),
                   z.data_ptr(), ids.data_ptr(), w.data_ptr(), visits, chunk,
                   splits, common.PIXEL_SCALE)
-    LAUNCHES["tc"] += 1
+    profiling.count("launches.mxu_full_tc")
     return z, ids, w[0], w[1], w[2]
 
 

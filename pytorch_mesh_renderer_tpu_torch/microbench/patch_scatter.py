@@ -50,13 +50,9 @@ import torch
 from ..ops import rasterize_barycentric_cuda as rb
 from ..ops import rasterize_cuda as rc
 from ..ops.barycentric import pixel_is_inside
-from ..utils import scenes
+from ..utils import profiling, scenes
 from ..utils.device import resolve_device
 from . import common
-
-# Launches of the patch-eval kernel in this process; the wrapper adds one
-# per launch and nothing else touches it.
-LAUNCHES = {"patch_eval": 0}
 
 LANES = 128
 # Instance rows per budget quantum (the script's IC, an f32 sublane tile).
@@ -196,7 +192,7 @@ def launch_patch_eval(table, size, patch):
     common.launch("patch_eval", table.device, table.data_ptr(),
                   out.data_ptr(), n_inst, size, patch[1],
                   rc.pixel_scale(size))
-    LAUNCHES["patch_eval"] += 1
+    profiling.count("launches.patch_eval")
     return tuple(out)
 
 

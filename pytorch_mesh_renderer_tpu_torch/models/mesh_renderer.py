@@ -13,6 +13,10 @@ the device of `vertices`; Python numbers and sequences are materialised
 there (`utils/capture.constant`: a number by a device fill, a sequence or
 array copied once per device, so a step that passes them can be captured
 into a CUDA graph after its warm-up).
+
+Each call counts one `render.calls` and, while a `torch.profiler`
+profile records, is an `mr.render` span whose shading is an `mr.shade`
+span (`utils/profiling`); the camera and the rasterizer open their own.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..ops.math_utils import normalize
 from ..ops.mesh import int32_index
 from ..ops.rasterize import rasterize
 from ..ops.shading import phong_shader, tone_mapper  # re-export: tone_mapper
+from ..utils import profiling
 from ..utils.capture import constant
 from ..utils.debug import debug_check_finite
 
@@ -113,6 +118,21 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
       pre-tonemapping (may exceed 1), alpha is ~1 on mesh pixels and 0 on
       background.
     """
+    profiling.count("render.calls")
+    with profiling.annotate("mr.render"):
+        return _render(vertices, triangles, normals, diffuse_colors,
+                       camera_position, camera_lookat, camera_up,
+                       light_positions, light_intensities, image_width,
+                       image_height, specular_colors, shininess_coefficients,
+                       ambient_color, fov_y, near_clip, far_clip, config)
+
+
+def _render(vertices, triangles, normals, diffuse_colors, camera_position,
+            camera_lookat, camera_up, light_positions, light_intensities,
+            image_width, image_height, specular_colors,
+            shininess_coefficients, ambient_color, fov_y, near_clip,
+            far_clip, config):
+    """`render`'s body, inside its span."""
     vertices, triangles = _vertices_and_triangles(vertices, triangles)
     device = vertices.device
     batch_size = vertices.shape[0]
@@ -187,6 +207,21 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
         vertices, vertex_attributes, triangles, clip_space_transforms,
         image_width, image_height, background_value, config=config)
 
+    with profiling.annotate("mr.shade"):
+        images = _shade(pixel_attributes, light_positions, light_intensities,
+                        camera_position, specular_colors,
+                        shininess_coefficients, ambient_color)
+    if config_lib.debug_checks_enabled():
+        debug_check_finite(images, "mesh_renderer.render output")
+    return images
+
+
+def _shade(pixel_attributes, light_positions, light_intensities,
+           camera_position, specular_colors, shininess_coefficients,
+           ambient_color):
+    """Phong shading of the rasterized attributes (normals, positions,
+    diffuse, then specular and shininess when given) under the pixel mask
+    of covered pixels: the diffuse attribute's background is -1."""
     pixel_normals = normalize(pixel_attributes[..., 0:3], p=2, dim=3)
     pixel_positions = pixel_attributes[..., 3:6]
     pixel_diffuse = pixel_attributes[..., 6:9]
@@ -201,7 +236,7 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
 
     pixel_mask = torch.any(pixel_diffuse >= 0.0, dim=3).to(torch.float32)
 
-    images = phong_shader(
+    return phong_shader(
         normals=pixel_normals,
         alphas=pixel_mask,
         pixel_positions=pixel_positions,
@@ -213,9 +248,6 @@ def render(vertices, triangles, normals, diffuse_colors, camera_position,
         specular_colors=pixel_specular,
         shininess_coefficients=shininess_for_shader,
         ambient_color=ambient_color)
-    if config_lib.debug_checks_enabled():
-        debug_check_finite(images, "mesh_renderer.render output")
-    return images
 
 
 class MeshRenderer(nn.Module):

@@ -17,7 +17,8 @@ package's eager path does. The check reads the values on the host, so it
 is skipped while the card's stream captures a CUDA graph (a step of
 `parallel.make_train_step`), as the JAX package skips it under `jit`
 (`pytorch_mesh_renderer_tpu/ops/camera.py:91-99`); every camera such a
-step renders was checked in its eager warm-up.
+step renders was checked in its eager warm-up. Each check that reads
+counts one `host_syncs.camera` (`utils/profiling.count`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import math
 
 import torch
 
+from ..utils import profiling
 from ..utils.capture import capturing
 
 _DEGENERACY_CUTOFF = 1e-6
@@ -67,6 +69,7 @@ def euler_matrices(angles: torch.Tensor) -> torch.Tensor:
 def _check_not_degenerate(norm: torch.Tensor, message: str) -> None:
     if capturing(norm):
         return
+    profiling.count("host_syncs.camera")
     if not bool(torch.all(norm > _DEGENERACY_CUTOFF)):
         raise AssertionError(message)
 
@@ -184,7 +187,8 @@ def clip_space_transforms(camera_position, camera_lookat, camera_up,
                           fov_y, near_clip, far_clip,
                           image_width: int, image_height: int) -> torch.Tensor:
     """perspective(fov) @ look_at(eye, center, up), [batch_size, 4, 4]."""
-    camera_matrices = look_at(camera_position, camera_lookat, camera_up)
-    perspective_transforms = perspective(
-        image_width / image_height, fov_y, near_clip, far_clip)
-    return _bmm4(perspective_transforms, camera_matrices)
+    with profiling.annotate("mr.camera"):
+        camera_matrices = look_at(camera_position, camera_lookat, camera_up)
+        perspective_transforms = perspective(
+            image_width / image_height, fov_y, near_clip, far_clip)
+        return _bmm4(perspective_transforms, camera_matrices)

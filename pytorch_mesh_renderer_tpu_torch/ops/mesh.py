@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import capture
+from ..utils import capture, profiling
 from .math_utils import normalize
 
 # Caches keyed by a tensor: (storage, shape, strides, dtype, device,
@@ -106,6 +106,7 @@ def _build_plan(flat, vertex_count, device):
 def _plan_on_host(index, vertex_count, signature):
     """Reads the index on the host; the plan of an index of the same
     signature and values planned before, else a new one."""
+    profiling.count("host_syncs.mesh_plan")
     flat = index.detach().reshape(-1).cpu().numpy().astype(np.int64)
     if flat.size and (flat.min() < 0 or flat.max() >= vertex_count):
         raise ValueError(f"index values must lie in [0, {vertex_count})")
@@ -290,9 +291,11 @@ def compute_edges_list(triangles) -> torch.Tensor:
       [edge_count, 2] int32 tensor of unique edges, on the device of
       `triangles` (the CPU for an array).
     """
-    device = triangles.device if torch.is_tensor(triangles) else "cpu"
-    tris = (triangles.cpu().numpy() if torch.is_tensor(triangles)
-            else np.asarray(triangles))
+    if torch.is_tensor(triangles):
+        profiling.count("host_syncs.mesh_edges")
+        device, tris = triangles.device, triangles.cpu().numpy()
+    else:
+        device, tris = "cpu", np.asarray(triangles)
     edges = np.concatenate(
         [tris[:, :2], tris[:, 1:], tris[:, ::2]], axis=0).reshape(-1, 2)
     edges = np.unique(edges, axis=0).astype(np.int32)

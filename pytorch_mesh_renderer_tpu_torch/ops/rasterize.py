@@ -7,6 +7,9 @@ clamp(2 * sum(barycentrics), 0, 1) over `background_value`; and
 kernel's contract). Gradients reach the clip vertices and the attributes
 through the kernels' analytic backward.
 
+`rasterize` and `rasterize_clip_space` each open one `mr.rasterize` span
+(`utils/profiling.annotate`), the projection included in the first.
+
 Backend choice is by tensor device, never by fallback: under 'auto' a CPU
 tensor takes the plain PyTorch version and a CUDA tensor the CUDA kernel;
 'cuda' on a CPU tensor raises; 'torch' forces the plain version.
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as config_lib
+from ..utils import profiling
 from ..utils.capture import constant
 from . import camera
 from .math_utils import clip
@@ -89,12 +93,13 @@ def rasterize(world_space_vertices, attributes, triangles, camera_matrices,
     Returns:
       [batch_size, image_height, image_width, attribute_count] f32.
     """
-    clip_space_vertices = camera.transform_homogeneous(
-        camera_matrices, world_space_vertices)
-    return rasterize_clip_space(clip_space_vertices, attributes, triangles,
-                                image_width, image_height, background_value,
-                                config=config, row_offset=row_offset,
-                                full_height=full_height)
+    with profiling.annotate("mr.rasterize"):
+        clip_space_vertices = camera.transform_homogeneous(
+            camera_matrices, world_space_vertices)
+        return _rasterize_clip_space(clip_space_vertices, attributes,
+                                     triangles, image_width, image_height,
+                                     background_value, config, row_offset,
+                                     full_height)
 
 
 def rasterize_clip_space(clip_space_vertices, attributes, triangles,
@@ -108,6 +113,17 @@ def rasterize_clip_space(clip_space_vertices, attributes, triangles,
     clip_space_vertices and attributes: the CUDA kernel's backward under
     the 'cuda' route, the plain analytic backward under 'torch'.
     """
+    with profiling.annotate("mr.rasterize"):
+        return _rasterize_clip_space(clip_space_vertices, attributes,
+                                     triangles, image_width, image_height,
+                                     background_value, config, row_offset,
+                                     full_height)
+
+
+def _rasterize_clip_space(clip_space_vertices, attributes, triangles,
+                          image_width, image_height, background_value,
+                          config, row_offset, full_height):
+    """`rasterize_clip_space`'s body, inside its span."""
     if not image_width > 0:
         raise ValueError("Image width must be > 0.")
     if not image_height > 0:

@@ -20,7 +20,9 @@ barycentrics [B, H, W, 3] f32, z [B, H, W] f32); uncovered pixels have
 id 0, bc 0 and z 1. Gradients reach the clip vertices through the
 barycentrics only, by the analytic VJP (no vertex-z gradient, the 0.9
 cutoff); ids and z take no cotangent. The backward runs the route the
-forward ran.
+forward ran. Each launch of K3 or K4 counts one
+`launches.rasterize_bary_fwd` or `launches.rasterize_bary_bwd`
+(`utils/profiling.count`), once at a CUDA graph's capture.
 """
 
 from __future__ import annotations
@@ -28,16 +30,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils import kernels
+from ..utils import kernels, profiling
 from . import rasterize_cuda as rc
-
-# Launches of the forward (K3) and backward (K4) kernels in this process;
-# each wrapper adds one per launch and nothing else touches them.
-# A launch recorded into a CUDA graph (parallel/sharded.py) counts once,
-# at the capture; the graph's replays do not count.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-
 
 # choose_launch's constants (csrc/rasterize_cluster_fwd.cuh).
 GROUP_ONE_ROWS_PER_SM = 32768
@@ -81,7 +75,6 @@ def launch_bary_fwd(table, image_width, image_height, row_offset,
     Returns:
       (ids, barycentrics, z) as rasterize_barycentric_cuda.
     """
-    global FWD_LAUNCHES
     rc.check_kernel_operands(table.device, [("table", table, torch.float32)])
     batch, n_tri = table.shape[:2]
     if table.shape != (batch, n_tri, rc.TRI_COLS):
@@ -104,7 +97,7 @@ def launch_bary_fwd(table, image_width, image_height, row_offset,
             rc.pixel_scale(image_width), rc.pixel_scale(full_height),
             int(group), int(split), stream)
     kernels.check_cuda_error(lib, error, "rasterize_bary_fwd launch")
-    FWD_LAUNCHES += 1
+    profiling.count("launches.rasterize_bary_fwd")
     return ids, bc, z
 
 
@@ -118,7 +111,6 @@ def launch_bary_bwd(ids, bc, df_dbc, table, inv_abs_det):
     rendered a strip; the kernel runs K2's grid of 8x8-pixel CTAs over
     W x H.
     """
-    global BWD_LAUNCHES
     f32 = torch.float32
     rc.check_kernel_operands(ids.device, [
         ("ids", ids, torch.int32), ("bc", bc, f32), ("df_dbc", df_dbc, f32),
@@ -134,7 +126,7 @@ def launch_bary_bwd(ids, bc, df_dbc, table, inv_abs_det):
             table.data_ptr(), inv_abs_det.data_ptr(), dtab.data_ptr(),
             batch, n_tri, ids.shape[2], ids.shape[1], stream)
     kernels.check_cuda_error(lib, error, "rasterize_bary_bwd launch")
-    BWD_LAUNCHES += 1
+    profiling.count("launches.rasterize_bary_bwd")
     return dtab
 
 

@@ -36,6 +36,12 @@ not autograd through the plain ops: vertex z gets no gradient, pixels with
 id 0 and a barycentric sum below 0.9 contribute nothing, and the ids and z
 outputs take no cotangent. The backward runs the route the forward ran:
 the kernel after the kernel, the plain version after the plain version.
+
+The forward's packing is an `mr.rasterize.pack` span and K1's launch an
+`mr.rasterize.launch` span (`utils/profiling.annotate`); each launch of
+K1 or K2 counts one `launches.rasterize_fused_fwd` or
+`launches.rasterize_fused_bwd` (`utils/profiling.count`), once at a
+CUDA graph's capture and never at its replays.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils import kernels
+from ..utils import kernels, profiling
 from .barycentric import (DEGENERATE_BARYCENTRIC_CUTOFF, pixel_is_inside,
                           unnormalized_matrix_inverse)
 from .mesh import vertex_plan
@@ -52,14 +58,6 @@ from .mesh import vertex_plan
 # Packed triangle row: 9 edge coefficients (a, b, c per edge), 3 clip z,
 # 3 clip w, liveness. 16 f32 = 64 bytes, four 16-byte loads in the kernel.
 TRI_COLS = 16
-
-# Launches of the forward (K1) and backward (K2) kernels in this process;
-# each wrapper adds one per launch and nothing else touches them.
-# chip_smoke.py resets and reads them to show that a run went through the
-# kernels. A launch recorded into a CUDA graph (parallel/sharded.py)
-# counts once, at the capture; the graph's replays do not count.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 
 
 def pack_rows(clip_vertices: torch.Tensor, triangles: torch.Tensor,
@@ -221,7 +219,6 @@ def launch_fused_fwd(table, corner, image_width, image_height, row_offset,
     Returns:
       (ids, barycentrics, attributes[, z]) as rasterize_interpolate_cuda.
     """
-    global LAUNCHES
     if table.device.type != "cuda" or corner.device != table.device:
         raise ValueError("the packed tables must lie on one CUDA device")
     if table.dtype != torch.float32 or corner.dtype != torch.float32:
@@ -260,7 +257,7 @@ def launch_fused_fwd(table, corner, image_width, image_height, row_offset,
             image_height, row_offset, pixel_scale(image_width),
             pixel_scale(full_height), int(split), stream)
     kernels.check_cuda_error(lib, error, "rasterize_fused_fwd launch")
-    LAUNCHES += 1
+    profiling.count("launches.rasterize_fused_fwd")
     out = (ids, bc, attrs)
     return out + (z,) if with_z else out
 
@@ -396,7 +393,6 @@ def launch_fused_bwd(ids, bc, df_dbc, df_dattr, table, inv_abs_det, corner):
     Every operand must be a contiguous CUDA tensor on one device: ids i32,
     the rest f32, shaped as triangle_gradients_torch's arguments.
     """
-    global BWD_LAUNCHES
     f32 = torch.float32
     check_kernel_operands(ids.device, [
         ("ids", ids, torch.int32), ("bc", bc, f32), ("df_dbc", df_dbc, f32),
@@ -421,7 +417,7 @@ def launch_fused_bwd(ids, bc, df_dbc, df_dattr, table, inv_abs_det, corner):
             corner.data_ptr(), dtab.data_ptr(), batch, n_tri, n_attr,
             ids.shape[2], ids.shape[1], stream)
     kernels.check_cuda_error(lib, error, "rasterize_fused_bwd launch")
-    BWD_LAUNCHES += 1
+    profiling.count("launches.rasterize_fused_bwd")
     return dtab
 
 
@@ -457,12 +453,15 @@ class _RasterizeInterpolate(torch.autograd.Function):
                 image_height, row_offset, full_height, with_z,
                 triangle_chunk, use_kernel):
         needs_grad = any(ctx.needs_input_grad[:2])
-        table, inv_abs_det = pack_rows(clip_vertices, triangles,
-                                       needs_grad)
-        corner = pack_corner_attributes(attributes, triangles)
+        with profiling.annotate("mr.rasterize.pack"):
+            table, inv_abs_det = pack_rows(clip_vertices, triangles,
+                                           needs_grad)
+            corner = pack_corner_attributes(attributes, triangles)
         if use_kernel:
-            outs = launch_fused_fwd(table, corner, image_width, image_height,
-                                    row_offset, full_height, with_z)
+            with profiling.annotate("mr.rasterize.launch"):
+                outs = launch_fused_fwd(table, corner, image_width,
+                                        image_height, row_offset,
+                                        full_height, with_z)
         else:
             outs = forward_torch_packed(table, corner, image_width,
                                         image_height, row_offset,
@@ -535,7 +534,9 @@ def rasterize_interpolate_cuda(clip_vertices, attributes, triangles,
     The forward launches K1, the backward K2. Raises on anything the
     kernels do not take: tensors off the card or on different devices,
     wrong types or shapes. A CUDA launch error raises with its message.
-    Adds one to LAUNCHES per forward launch, to BWD_LAUNCHES per backward.
+    Counts each launch (`utils/profiling.count`): one
+    `launches.rasterize_fused_fwd` per forward, one
+    `launches.rasterize_fused_bwd` per backward.
     """
     row_offset, full_height = resolve_rows(image_height, row_offset,
                                            full_height)

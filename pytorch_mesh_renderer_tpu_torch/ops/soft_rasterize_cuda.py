@@ -20,7 +20,10 @@ Port of K5-K8, the four kernels of the JAX package's
     its memory stays at one chunk's graph);
   * the launchers of the CUDA kernels `csrc/soft_fwd.cu` (K7),
     `csrc/soft_bwd.cu` (K8), `csrc/soft_sil_fwd.cu` (K5) and
-    `csrc/soft_sil_bwd.cu` (K6), each with its launch counter;
+    `csrc/soft_sil_bwd.cu` (K6), each counting its launches
+    (`launches.soft_fwd`, `.soft_bwd`, `.soft_sil_fwd`, `.soft_sil_bwd`
+    in `utils/profiling.counters()`; a launch recorded into a CUDA graph
+    counts once, at the capture);
   * two autograd Functions, the twins of `_soft_pallas_core` (:1278-1359)
     and `_soft_sil_core` (:1058-1109). Each takes the packed table (and
     the lights [B, L, 4]) and sigma/gamma and returns their cotangents;
@@ -54,7 +57,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import kernels
+from ..utils import kernels, profiling
 from .math_utils import clip
 from .mesh import gather
 from .rasterize_cuda import check_kernel_operands
@@ -62,16 +65,6 @@ from .rasterize_cuda import check_kernel_operands
 COLS = 59
 EPS = 1e-10  # background-probability floor
 NEG_BIG = -1e30
-
-# Launches of K7 (FWD), K8 (BWD), K5 (SIL_FWD) and K6 (SIL_BWD) in this
-# process; each launcher adds one per launch and nothing else touches them.
-# chip_smoke.py resets and reads them to show that a run went through the
-# kernels. A launch recorded into a CUDA graph (parallel/sharded.py)
-# counts once, at the capture; the graph's replays do not count.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-SIL_FWD_LAUNCHES = 0
-SIL_BWD_LAUNCHES = 0
 
 
 def _edge_len2(xs, ys):
@@ -452,7 +445,6 @@ def launch_soft_fwd(table, lights, params, image_width, image_height,
     measure that choice (chip_smoke.py, utils/soft_work.py). The outputs do
     not depend on it.
     """
-    global FWD_LAUNCHES
     device = table.device
     _check_table(table, params, device)
     check_kernel_operands(device, [("lights", lights, torch.float32)])
@@ -471,7 +463,7 @@ def launch_soft_fwd(table, lights, params, image_width, image_height,
             n_tri, lights.shape[1], image_width, image_height, full_height,
             int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_fwd launch")
-    FWD_LAUNCHES += 1
+    profiling.count("launches.soft_fwd")
     return rgba, run_max, sum_w
 
 
@@ -486,7 +478,6 @@ def launch_soft_bwd(table, lights, params, rgba, run_max, sum_w, d_rgba,
     compiled kSplit. Other values serve only to measure that choice
     (chip_smoke.py).
     """
-    global BWD_LAUNCHES
     device = table.device
     f32 = torch.float32
     _check_table(table, params, device)
@@ -520,7 +511,7 @@ def launch_soft_bwd(table, lights, params, rgba, run_max, sum_w, d_rgba,
             dparams.data_ptr(), batch, n_tri, n_lights, width, height,
             full_height, int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_bwd launch")
-    BWD_LAUNCHES += 1
+    profiling.count("launches.soft_bwd")
     return dtable, dlights, dparams
 
 
@@ -529,7 +520,6 @@ def launch_sil_fwd(table, params, image_width, image_height, full_height,
     """Launch K5; returns alpha [B, H, W]. Operands and split as
     launch_soft_fwd's; alpha does not depend on the split and equals K7's
     bit for bit."""
-    global SIL_FWD_LAUNCHES
     device = table.device
     _check_table(table, params, device)
     batch, n_tri = table.shape[:2]
@@ -542,7 +532,7 @@ def launch_sil_fwd(table, params, image_width, image_height, full_height,
             n_tri, image_width, image_height, full_height, int(split),
             _stream(device))
     kernels.check_cuda_error(lib, error, "soft_sil_fwd launch")
-    SIL_FWD_LAUNCHES += 1
+    profiling.count("launches.soft_sil_fwd")
     return alpha
 
 
@@ -561,7 +551,6 @@ def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0,
     f32 tensor on the device to use instead; the rows then run in as few
     chunks as it holds, and a buffer too small for one row raises.
     """
-    global SIL_BWD_LAUNCHES
     device = table.device
     f32 = torch.float32
     _check_table(table, params, device)
@@ -588,7 +577,7 @@ def launch_sil_bwd(table, params, alpha, d_alpha, full_height, split=0,
             scratch.data_ptr(), scratch.numel(), batch, n_tri, width, height,
             full_height, int(split), _stream(device))
     kernels.check_cuda_error(lib, error, "soft_sil_bwd launch")
-    SIL_BWD_LAUNCHES += 1
+    profiling.count("launches.soft_sil_bwd")
     return dtable, dsigma
 
 

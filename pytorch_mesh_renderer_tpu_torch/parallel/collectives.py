@@ -44,6 +44,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 
 class Gather(NamedTuple):
     """A gather a step met: which collective, and its input's shape and
@@ -90,6 +92,8 @@ def _all_gather(tensor, label):
             "not a training step's: capture the step through "
             "parallel.make_train_step, which cuts its graph at each gather")
     staged = through_host(tensor.device)
+    if staged:
+        profiling.count("host_syncs.gather")
     src = (tensor.detach().cpu() if staged
            else tensor.detach().contiguous())
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]

@@ -78,13 +78,19 @@ falls back to eager execution on the card. An optimizer with a
 `capturable` flag must be built with `capturable=True` on the card
 (`torch.optim.Adam(params, lr, capturable=True)`) and without it on the
 CPU, which refuses it. The kernels' launch counters
-(`ops/rasterize_cuda.LAUNCHES` and the others) count the launches made
-while capturing, once, and none of the replays.
+(`launches.<kernel>` in `utils/profiling.counters()`) count the launches
+made while capturing, once, and none of the replays.
+
+While a `torch.profiler` profile records, a step call is an `mr.step`
+span, its batch and hyperparameter checks and copies `mr.step.load`, and
+each replay of the chain `mr.step.replay` (`utils/profiling.annotate`);
+a loop call is an `mr.loop` span holding one `mr.step.replay` per step.
+Between two graphs of a chain a replay's wait for the first is
+`mr.step.gather_wait` (and counts one `host_syncs.gather_wait`), and its
+gather `mr.step.gather`.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -94,7 +100,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from ..ops import camera
 from ..ops import rasterize as rasterize_lib
 from ..ops import soft_rasterize as soft_rasterize_lib
-from ..utils import capture
+from ..utils import capture, profiling
 from . import collectives
 from .mesh import DATA_AXIS, SPACE_AXIS, local_device, owner, process_index
 
@@ -320,9 +326,7 @@ _MISSING = object()
 class _Chain:
     """A step captured as CUDA graphs cut at the gathers that `met` lists
     (the warm-up's `collectives.gathers`, in order): one graph when it is
-    empty. `replay()` runs the graphs in turn, each gather between them;
-    `wait_s` and `gather_s` add up the host seconds the replays spent
-    waiting for a graph to end and gathering."""
+    empty. `replay()` runs the graphs in turn, each gather between them."""
 
     def __init__(self, device, met):
         self.device = device
@@ -333,7 +337,6 @@ class _Chain:
         self.mode = "relaxed" if met else "global"
         self.buffers = [self._buffers(g) for g in met]  # (src, parts, out)
         self.event = torch.cuda.Event()
-        self.wait_s = self.gather_s = 0.0
 
     def _buffers(self, gather):
         """A gather's static tensors: its input, the parts the collective
@@ -408,13 +411,12 @@ class _Chain:
         them."""
         for k, graph in enumerate(self.graphs[:-1]):
             graph.replay()
-            t0 = time.perf_counter()
-            self.event.record()
-            self.event.synchronize()
-            t1 = time.perf_counter()
-            self.gather(k)
-            self.wait_s += t1 - t0
-            self.gather_s += time.perf_counter() - t1
+            with profiling.annotate("mr.step.gather_wait"):
+                self.event.record()
+                profiling.count("host_syncs.gather_wait")
+                self.event.synchronize()
+            with profiling.annotate("mr.step.gather"):
+                self.gather(k)
         self.graphs[-1].replay()
 
 
@@ -447,18 +449,33 @@ class TrainStep:
         return loss.detach()
 
     def __call__(self, batch):
+        with profiling.annotate("mr.step"):
+            return self._step(batch)
+
+    def _step(self, batch):
+        """One step: eager on the CPU, the warm-up and capture at the
+        first call on a card, else the batch loaded and a replay."""
         if self.device.type != "cuda":
             return self.run_eager(batch)
         if self.graph is None:
             return self._warm_up_and_capture(batch)
         self._load(batch)
-        self.graph.replay()
+        self._replay()
         return self.static_loss.clone()
+
+    def _replay(self):
+        """Replays the captured chain on the current stream."""
+        with profiling.annotate("mr.step.replay"):
+            self.graph.replay()
 
     def _load(self, batch):
         """Copy `batch`'s tensors into the static inputs, after checking
         that the batch and the optimizer's hyperparameters are as at the
         capture."""
+        with profiling.annotate("mr.step.load"):
+            self._check_and_copy(batch)
+
+    def _check_and_copy(self, batch):
         leaves, spec = tree_flatten(batch)
         static, static_spec = self.static
         if spec != static_spec or not all(
@@ -509,6 +526,7 @@ class TrainStep:
             outputs[0].backward()
             self.optimizer.step()
 
+        profiling.count("host_syncs.capture")
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         with capture.hold() as constants, torch.cuda.stream(side):
@@ -528,19 +546,23 @@ class TrainLoop:
         self.steps_per_call = steps_per_call
 
     def __call__(self, batch):
+        with profiling.annotate("mr.loop"):
+            return self._steps(batch)
+
+    def _steps(self, batch):
         step, k = self.step, self.steps_per_call
         losses = torch.empty(k, dtype=torch.float32, device=step.device)
         first = 0
         if step.device.type == "cuda" and step.graph is not None:
             step._load(batch)
         else:
-            losses[0] = step(batch)
+            losses[0] = step._step(batch)
             first = 1
         for i in range(first, k):
             if step.graph is None:
                 losses[i] = step.run_eager(batch)
             else:
-                step.graph.replay()
+                step._replay()
                 losses[i].copy_(step.static_loss)
         return losses
 

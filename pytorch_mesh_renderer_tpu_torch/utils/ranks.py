@@ -57,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from . import capture
+from . import capture, profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -315,16 +315,14 @@ def listed(gathers):
     return [(g.label, g.shape, str(g.dtype)) for g in gathers]
 
 
+LAUNCHED = ("rasterize_fused_fwd", "rasterize_fused_bwd", "soft_sil_fwd",
+            "soft_sil_bwd", "soft_fwd", "soft_bwd")
+
+
 def launch_counts():
     """The kernels' launch counters in this process, by kernel name."""
-    from ..ops import rasterize_cuda as rc
-    from ..ops import soft_rasterize_cuda as sc
-
-    return {"rasterize_fused_fwd": rc.LAUNCHES,
-            "rasterize_fused_bwd": rc.BWD_LAUNCHES,
-            "soft_sil_fwd": sc.SIL_FWD_LAUNCHES,
-            "soft_sil_bwd": sc.SIL_BWD_LAUNCHES,
-            "soft_fwd": sc.FWD_LAUNCHES, "soft_bwd": sc.BWD_LAUNCHES}
+    counts = profiling.counters()
+    return {name: counts.get("launches." + name, 0) for name in LAUNCHED}
 
 
 def _step_entry(job, device, case, hard_case, mesh):
@@ -332,7 +330,8 @@ def _step_entry(job, device, case, hard_case, mesh):
     gathers a step meets and, on a card, the captured steps (through the
     step and through the loop) and the times of the eager and the captured
     step (CUDA events), with the host's ms a captured step waits for a
-    graph to end (`wait_ms`) and gathers (`gather_ms`), and the ms of its
+    graph to end (`wait_ms`) and gathers (`gather_ms`), from the chain's
+    spans over as many steps again under a profile, and the ms of its
     gathers alone, without the card (`gloo_ms`)."""
     from .. import parallel
     from ..microbench import common
@@ -372,12 +371,23 @@ def _step_entry(job, device, case, hard_case, mesh):
     entry["eager_ms"] = common.wall_ms(lambda: step.run_eager(batch), device,
                                        **timed)
     step(batch)  # the warm-up and the capture
-    step.graph.wait_s = step.graph.gather_s = 0.0
     entry["captured_ms"] = common.wall_ms(lambda: step(batch), device,
                                           **timed)
     calls = TIMED_WARMUP + TIMED_WINDOWS * TIMED_STEPS
-    entry["wait_ms"] = step.graph.wait_s * 1e3 / calls
-    entry["gather_ms"] = step.graph.gather_s * 1e3 / calls
+    # The host's wait for a graph and its gathers: the chain's spans, read
+    # over as many steps again under a profile of the host.
+    before = profiling.span_table()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(calls):
+            step(batch)
+    torch.cuda.synchronize(device)
+    after = profiling.span_table()
+    for key, span in (("wait_ms", "mr.step.gather_wait"),
+                      ("gather_ms", "mr.step.gather")):
+        seconds = after.get(span, (0, 0.0, 0.0))[1] - before.get(
+            span, (0, 0.0, 0.0))[1]
+        entry[key] = seconds * 1e3 / calls
     # The step's gathers alone, on the host, as many times.
     t0 = time.perf_counter()
     for _ in range(calls):

@@ -85,8 +85,8 @@ from pytorch_mesh_renderer_tpu_torch.ops import rasterize_barycentric_cuda as rb
 from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
 from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
 from pytorch_mesh_renderer_tpu_torch.utils import (capture, hard_work, kernels,
-                                                   scenes, soft_work,
-                                                   test_utils)
+                                                   profiling, scenes,
+                                                   soft_work, test_utils)
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +102,13 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda", 0)
+
+
+def _launches(*kernels):
+    """Each kernel's launches so far in this process
+    (`launches.<kernel>` in `profiling.counters()`), in order."""
+    counts = profiling.counters()
+    return tuple(counts.get("launches." + k, 0) for k in kernels)
 
 
 def _snapped_scene(dev, batch=2, vertex_count=300, tri_count=2000,
@@ -169,10 +176,10 @@ def _assert_same(kernel, plain):
 @pytest.mark.parametrize("with_z", [True, False])
 def test_kernel_matches_plain_version(dev, scene, with_z):
     clip, attrs, tris, width, height = _scene(scene, dev)
-    before = rc.LAUNCHES
+    (before,) = _launches("rasterize_fused_fwd")
     kernel = rc.rasterize_interpolate_cuda(clip, attrs, tris, width, height,
                                            with_z=with_z)
-    assert rc.LAUNCHES == before + 1
+    assert _launches("rasterize_fused_fwd") == (before + 1,)
     plain = rc.rasterize_interpolate_torch(clip, attrs, tris, width, height,
                                            with_z=with_z)
     _assert_same(kernel, plain)
@@ -211,11 +218,11 @@ def test_k1_at_every_split_equals_the_plain_version_and_k3(dev, scene):
     table = rc.pack_rows(clip, tris, False)[0]
     corner = rc.pack_corner_attributes(attrs, tris)
     splits, shapes = test_utils.hard_splits(), test_utils.bary_shapes()
-    before = (rc.LAUNCHES, rb.FWD_LAUNCHES)
+    before = _launches("rasterize_fused_fwd", "rasterize_bary_fwd")
     k1 = test_utils.compare_k1_splits(table, corner, width, height,
                                       splits=splits, bary=shapes)
-    assert (rc.LAUNCHES, rb.FWD_LAUNCHES) == (before[0] + len(splits),
-                                              before[1] + len(shapes))
+    assert _launches("rasterize_fused_fwd", "rasterize_bary_fwd") == (
+        before[0] + len(splits), before[1] + len(shapes))
     _assert_same(k1, rc.forward_torch_packed(table, corner, width, height,
                                              0, height, True))
     assert bool((k1[0] > 0).any())
@@ -268,10 +275,10 @@ def test_k3_at_every_group_and_split_equals_k1_and_the_plain_version(
     table = rc.pack_rows(clip, tris, False)[0]
     corner = rc.pack_corner_attributes(attrs, tris)
     shapes = test_utils.bary_shapes()
-    before = rb.FWD_LAUNCHES
+    (before,) = _launches("rasterize_bary_fwd")
     k1 = test_utils.compare_k1_splits(table, corner, width, height,
                                       bary=shapes)
-    assert rb.FWD_LAUNCHES == before + len(shapes)
+    assert _launches("rasterize_bary_fwd") == (before + len(shapes),)
     plain = rb.rasterize_barycentric_torch(clip, tris, width, height)
     for k, p in zip((k1[0], k1[1], k1[3]), plain):
         assert torch.equal(k, p)
@@ -292,13 +299,14 @@ def test_render_backward_launches_kernel_once(dev):
     for config in (None, config_lib.HardRasterizerConfig(backend="torch")):
         v = vertices.clone().requires_grad_(True)
         images = mesh_renderer.render(v, *args, config=config)
-        before = (rc.LAUNCHES, rc.BWD_LAUNCHES)
+        before = _launches("rasterize_fused_fwd", "rasterize_fused_bwd")
         (images[..., :3] ** 2).mean().backward()
         torch.cuda.synchronize()
         grads.append(v.grad)
         if config is None:  # 'auto' on a CUDA tensor: the kernels
-            assert (rc.LAUNCHES, rc.BWD_LAUNCHES) == (before[0],
-                                                      before[1] + 1)
+            assert _launches("rasterize_fused_fwd",
+                             "rasterize_fused_bwd") == (before[0],
+                                                        before[1] + 1)
     scale = float(grads[1].abs().max())
     assert scale > 0.0 and bool(torch.isfinite(grads[0]).all())
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * scale
@@ -347,9 +355,9 @@ def test_fused_backward_kernel_matches_plain_version(dev, scene):
                                      False)
     g_bc, g_attr = _cotangents(ids, attrs.shape[-1])
     operands = (ids, bc, g_bc, g_attr, table, inv_abs_det, corner)
-    before = rc.BWD_LAUNCHES
+    (before,) = _launches("rasterize_fused_bwd")
     kernel_table = rc.launch_fused_bwd(*operands)
-    assert rc.BWD_LAUNCHES == before + 1
+    assert _launches("rasterize_fused_bwd") == (before + 1,)
     plain_table = rc.triangle_gradients_torch(*operands)
     assert float(plain_table.abs().max()) > 0.0
     _assert_grads_close([kernel_table], [plain_table])
@@ -427,13 +435,13 @@ def test_barycentric_kernels_match_plain_versions(dev, scene):
     outs = []
     for kernel in (True, False):
         c = clip.clone().requires_grad_(True)
-        before = (rb.FWD_LAUNCHES, rb.BWD_LAUNCHES)
+        before = _launches("rasterize_bary_fwd", "rasterize_bary_bwd")
         fn = (rb.rasterize_barycentric_cuda if kernel
               else rb.rasterize_barycentric_torch)
         ids, bc, z = fn(c, tris, width, height)
         g_bc, _ = _cotangents(ids, 0)
         (bc * g_bc).sum().backward()
-        after = (rb.FWD_LAUNCHES, rb.BWD_LAUNCHES)
+        after = _launches("rasterize_bary_fwd", "rasterize_bary_bwd")
         assert after == ((before[0] + 1, before[1] + 1) if kernel
                          else before)
         outs.append((ids, bc.detach(), z))
@@ -505,9 +513,9 @@ def _k4_operands(case, dev):
 @pytest.mark.parametrize("case", K4_CASES)
 def test_k4_matches_its_plain_version(dev, case):
     operands = _k4_operands(case, dev)
-    before = rb.BWD_LAUNCHES
+    (before,) = _launches("rasterize_bary_bwd")
     kernel = rb.launch_bary_bwd(*operands)
-    assert rb.BWD_LAUNCHES == before + 1
+    assert _launches("rasterize_bary_bwd") == (before + 1,)
     plain = rb.triangle_gradients_bary_torch(*operands)
     torch.cuda.synchronize()
     assert kernel.shape == plain.shape == operands[3].shape[:2] + (9,)
@@ -570,8 +578,7 @@ SOFT_GRAD_RTOL = test_utils.SOFT_GRAD_RTOL
 
 
 def _soft_launches():
-    return (sc.FWD_LAUNCHES, sc.SIL_FWD_LAUNCHES, sc.BWD_LAUNCHES,
-            sc.SIL_BWD_LAUNCHES)
+    return _launches("soft_fwd", "soft_sil_fwd", "soft_bwd", "soft_sil_bwd")
 
 
 @pytest.mark.parametrize("scene", SOFT_SCENES)
@@ -754,15 +761,13 @@ def test_soft_render_launch_counters_and_no_plain_route(dev, monkeypatch):
     args = _soft_render_args(dev)
     for config in (None, config_lib.SoftRasterizerConfig(backend="cuda")):
         v = args[0].clone().requires_grad_(True)
-        before = (sc.FWD_LAUNCHES, sc.BWD_LAUNCHES, sc.SIL_FWD_LAUNCHES,
-                  sc.SIL_BWD_LAUNCHES)
+        before = _soft_launches()
         images = soft_mesh_renderer.render(v, *args[1:], config=config)
         alpha = soft_mesh_renderer.render_silhouette(
             v, args[1], *args[3:6], 32, 32, config=config)
         (images.square().mean() + alpha.square().mean()).backward()
         torch.cuda.synchronize()
-        after = (sc.FWD_LAUNCHES, sc.BWD_LAUNCHES, sc.SIL_FWD_LAUNCHES,
-                 sc.SIL_BWD_LAUNCHES)
+        after = _soft_launches()
         assert after == tuple(b + 1 for b in before)
         assert torch.equal(alpha, images[..., 3].detach())
         assert bool(torch.isfinite(v.grad).all())
@@ -803,7 +808,8 @@ def test_soft_large_mesh_renders_in_one_launch(dev):
                                           (135, 3), (73, 8), (45, 16)])
 def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
     data, coeff, pix = me.make_inputs(visits, chunk, dev)
-    before = dict(me.LAUNCHES)
+    names = ["mxu_edge_" + v for v in me.VARIANTS]
+    before = _launches(*names)
     assert torch.equal(me.launch_fma(data, visits, chunk),
                        me.fold_fma_torch(data, visits, chunk))
     for variant in ("tc_bf16", "tc_tf32x3"):
@@ -813,7 +819,7 @@ def test_mxu_edge_kernels_match_plain_versions(dev, visits, chunk):
         assert kernel.shape == plain.shape == (1, 2048)
         assert (float((kernel - plain).abs().max())
                 <= me.TC_RTOL * float(plain.abs().max()))
-    assert me.LAUNCHES == {name: n + 1 for name, n in before.items()}
+    assert _launches(*names) == tuple(n + 1 for n in before)
 
 
 # (37, 8): one split of 296 triangles, three of the tc kernel's stages of
@@ -829,14 +835,15 @@ def test_mxu_full_kernels_match_plain_versions(dev, visits, chunk):
         data, coeff, visits, chunk = mf.make_depth_tie_inputs(dev)
     else:
         data, coeff = mf.make_inputs(visits, chunk, dev)
-    before = dict(mf.LAUNCHES)
+    names = ["mxu_full_" + v for v in mf.VARIANTS]
+    before = _launches(*names)
     prod = mf.launch_prod(data, visits, chunk)
     for k, p in zip(prod, mf.zbuffer_prod_torch(data)):
         assert torch.equal(k, p)
     assert int((prod[1] >= 0).sum()) > 0
     mf.check_tc(mf.launch_tc(coeff, visits, chunk),
                 mf.tc_pairs(coeff, visits, chunk))
-    assert mf.LAUNCHES == {name: n + 1 for name, n in before.items()}
+    assert _launches(*names) == tuple(n + 1 for n in before)
     # prod at every visit split that divides the visits, up to 8, and each
     # group and split of K3's cluster: the same outputs.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -862,9 +869,9 @@ def test_patch_eval_kernel_matches_plain_version(dev, size):
                          scene["triangles"])
     table, _, n_dropped = ps.plan(rows, bbox, size, (16, 8), 32, 4)
     assert int(n_dropped.sum()) == 0
-    before = ps.LAUNCHES["patch_eval"]
+    (before,) = _launches("patch_eval")
     kernel = ps.launch_patch_eval(table, size, (16, 8))
-    assert ps.LAUNCHES["patch_eval"] == before + 1
+    assert _launches("patch_eval") == (before + 1,)
     plain = ps.patch_eval_torch(table, size, (16, 8))
     for k, p in zip(kernel, plain):
         assert torch.equal(k, p)
@@ -985,6 +992,46 @@ def test_captured_train_step_and_loop_match_eager_steps(dev, silhouette):
         step({"target": 0.0})
 
 
+def test_captured_step_and_loop_record_a_replay_span_per_step(dev):
+    """Under a profile a captured step call records one `mr.step.replay`
+    and a loop call of K steps K, inside one `mr.step` or `mr.loop` each;
+    the replays' host seconds and the rest of the calls' add up to the
+    calls' (the arithmetic of `replay_host_ms` and `step_prep_host_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    target = torch.linspace(0.0, 1.0, 64, device=dev)
+
+    def loss_fn(params, batch):
+        return ((params[0].sin() - batch) ** 2).mean()
+
+    def fresh():
+        param = torch.zeros(64, device=dev, requires_grad=True)
+        return torch.optim.Adam([param], lr=1e-2, capturable=True)
+
+    step = parallel.make_train_step(loss_fn, fresh())
+    loop = parallel.make_train_loop(loss_fn, fresh(), 5)
+    step(target), loop(target)  # the warm-ups and captures
+    torch.cuda.synchronize()
+    for call, span, calls, replays in ((step, "mr.step", 7, 7),
+                                       (loop, "mr.loop", 3, 15)):
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(calls):
+                call(target)
+            torch.cuda.synchronize()
+        table = profiling.span_table()
+        assert table[span][0] == calls
+        assert table["mr.step.replay"][0] == replays
+        assert table["mr.step.load"][0] == calls
+        names = [e.name for e in prof.events()]
+        assert names.count("mr.step.replay") == replays
+        replay_s = table["mr.step.replay"][1]
+        prep_s = table[span][1] - replay_s
+        assert 0.0 < replay_s and 0.0 < prep_s
+        assert table[span][2] == pytest.approx(
+            table[span][1] - replay_s - table["mr.step.load"][1], abs=1e-9)
+
+
 def test_a_step_that_cannot_be_captured_raises(dev):
     param = torch.zeros(3, device=dev, requires_grad=True)
 
@@ -1088,23 +1135,25 @@ def test_examples_run_through_the_kernels(dev, tmp_path):
     from pytorch_mesh_renderer_tpu_torch.examples import (
         fit_shape_multiview, optimize_cube_rotation)
 
-    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+    before = _launches("soft_sil_fwd", "soft_sil_bwd")
     fit = fit_shape_multiview.main([
         "--epochs", "20", "--size", "64", "--resolution", "12",
         "--preview-every", "10", "--out-prefix", str(tmp_path / "fit"),
         "--device", "cuda"])
-    assert sc.SIL_FWD_LAUNCHES > 0 and sc.SIL_BWD_LAUNCHES > 0
+    after = _launches("soft_sil_fwd", "soft_sil_bwd")
+    assert after[0] > before[0] and after[1] > before[1]
     assert fit["targets_from_file"]
     assert [p["epoch"] for p in fit["previews"]] == [0, 10, 19]
     assert np.isfinite(fit["vertices"]).all()
     assert (tmp_path / "fit_final.obj").exists()
 
-    rc.LAUNCHES = rc.BWD_LAUNCHES = 0
+    before = _launches("rasterize_fused_fwd", "rasterize_fused_bwd")
     cube = optimize_cube_rotation.main([
         "--steps", "5", "--size", "64",
         "--out-video", str(tmp_path / "cube.mp4"),
         "--out-plot", str(tmp_path / "cube.png"), "--device", "cuda"])
-    assert rc.LAUNCHES > 0 and rc.BWD_LAUNCHES > 0
+    after = _launches("rasterize_fused_fwd", "rasterize_fused_bwd")
+    assert after[0] > before[0] and after[1] > before[1]
     assert np.isfinite(cube["losses"]).all() and len(cube["losses"]) == 5
 
 
@@ -1121,9 +1170,10 @@ def test_fit_checkpoint_moves_between_cpu_and_card(dev, tmp_path):
             "--out-prefix", str(tmp_path / device), "--device", device])
 
     fit(2, "cpu")
-    sc.SIL_FWD_LAUNCHES = sc.SIL_BWD_LAUNCHES = 0
+    before = _launches("soft_sil_fwd", "soft_sil_bwd")
     on_card = fit(4, "cuda")
-    assert sc.SIL_FWD_LAUNCHES > 0 and sc.SIL_BWD_LAUNCHES > 0
+    after = _launches("soft_sil_fwd", "soft_sil_bwd")
+    assert after[0] > before[0] and after[1] > before[1]
     back = fit(6, "cpu")
     for result in (on_card, back):
         assert len(result["losses"]) == 2
@@ -1199,11 +1249,11 @@ def test_k6_in_row_chunks_matches_its_plain_version(dev):
                                          dev)[..., 3].contiguous()
     whole = kernels.load_library().soft_sil_bwd_scratch_floats(
         table.shape[0], table.shape[1], width, height, 0)
-    before = sc.SIL_BWD_LAUNCHES
+    (before,) = _launches("soft_sil_bwd")
     runs = [sc.launch_sil_bwd(table, params, alpha, d_alpha, height,
                               scratch=torch.empty(whole // 8, device=dev))
             for _ in range(2)]
-    assert sc.SIL_BWD_LAUNCHES == before + 2
+    assert _launches("soft_sil_bwd") == (before + 2,)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     plain = sc.soft_silhouette_backward_torch_packed(
         table, params[0], params[2], height, width, 0, height, d_alpha)
@@ -1324,15 +1374,15 @@ def test_sharded_wrappers_on_one_card_equal_the_unsharded_renders(
             mesh, v, t, cams, 32, 32, 1e-4), SOFT_GRAD_RTOL)}
     for name, (single, sharded, rtol) in renders.items():
         grads = []
+        kernel = {"hard": "rasterize_fused_fwd", "soft": "soft_fwd",
+                  "silhouette": "soft_sil_fwd"}[name]
         for render in (single, sharded):
             v = verts.clone().requires_grad_(True)
-            rc.LAUNCHES = sc.FWD_LAUNCHES = sc.SIL_FWD_LAUNCHES = 0
+            (before,) = _launches(kernel)
             out = render(v)
             grads.append((out, torch.autograd.grad((out ** 2).mean(),
                                                    v)[0]))
-        launched = {"hard": rc.LAUNCHES, "soft": sc.FWD_LAUNCHES,
-                    "silhouette": sc.SIL_FWD_LAUNCHES}[name]
-        assert launched == data * space, name
+        assert _launches(kernel) == (before + data * space,), name
         assert torch.equal(grads[0][0], grads[1][0]), name
         test_utils.grad_errors(name, grads[1][1], grads[0][1], rtol)
 
