@@ -24,13 +24,22 @@ and runs these phases, printing one line or more per phase:
                one image and two). Backward kernels (K2 fused, K4
                barycentric-only), under cotangents from a seeded generator:
                each gradient within 1e-5 of the plain tensor's max |value|.
+               Then the shading pair (phong_shade_fwd, phong_shade_bwd) on
+               the teapot's attributes rasterized as `render` rasterizes
+               them, at 256x256 batch 4 (with and without an ambient
+               colour) and batch 64: the image within 1e-6 of the plain
+               ops' (`mesh_renderer._shade_torch`), the attribute gradient
+               within 1e-5 per pixel of autograd's through them.
   4. main    — `mesh_renderer.render` on the teapot at 256x256 batch 4 with
-               the default backend, counting kernel launches; the same call
-               through the plain version; the four cube goldens at 640x480.
+               the default backend, counting kernel launches (K1 and the
+               shading forward once); the same call through the plain
+               version (backend 'torch'), which launches no kernel; the
+               four cube goldens at 640x480.
   5. train   — the headline training step (bench.py's `bench_hard`: loss
                mean(rgb^2), `.backward()` to the vertices) through the
-               kernels, counting K1 and K2 launches, against the same step
-               through the plain versions; then the 35-step cube-rotation
+               kernels, counting K1, K2 and the shading pair's launches,
+               against the same step through the plain versions, which
+               launches no kernel; then the 35-step cube-rotation
                recovery of tests/test_mesh_renderer.py at 640x480, gated by
                Gray_Cube_0.png at 1% / 0.04.
   6. bary    — `ops.rasterize.rasterize_barycentric` (the reference
@@ -48,7 +57,12 @@ and runs these phases, printing one line or more per phase:
                inactive); K3's and K4's on the teapot and sphere72 for one
                image and for four, K3 at its launcher's rule and at each
                group and split, K4 also on its floor; the K1 cull's counts
-               and where K2's work falls.
+               and where K2's work falls. The shading pair at batch 4 and
+               64: each kernel's device time (torch.profiler) and bound,
+               its plain version's time by CUDA events (the forward ops;
+               `phong_diffuse_backward_torch`) and the device time of
+               PyTorch's kernels for the same work (the forward ops;
+               autograd's backward through them, as `library_ms`).
 
 The soft (SoftRas) renderer's phases follow:
 
@@ -256,6 +270,12 @@ KERNELS = {
                     "scripts/mxu_full_microbench.py:113"),
     "patch_eval": (CSRC + "patch_eval.cu",
                    "scripts/patch_scatter_microbench.py:191"),
+    # The JAX package shades with plain XLA ops, which XLA fuses: the pair
+    # replaces no Pallas kernel.
+    "phong_shade_fwd": (CSRC + "phong_shade.cu",
+                        "none (pytorch_mesh_renderer_tpu/ops/shading.py:16)"),
+    "phong_shade_bwd": (CSRC + "phong_shade.cu",
+                        "none (pytorch_mesh_renderer_tpu/ops/shading.py:16)"),
 }
 # Forward kernels vs plain versions: both run the same fp32 operations in
 # the same order (the kernels are built with --fmad=false), so they should
@@ -272,6 +292,9 @@ TRAIN_RTOL = 1e-4
 # captured runs are held to them bit for bit.
 EAGER_RUNS = 4
 TEAPOT_SIZE, TEAPOT_BATCH = 256, 4
+# The shading pair's second batch: the benchmark's eager render cell
+# (teapot_256.hard_render_b64).
+SHADE_BATCH = 64
 # Table columns each soft kernel reads (csrc/soft_common.cuh): K5 and K6
 # the geometry phase's 29 (0-17, 21-25, 53-58), K7 and K8 all but the clip
 # w (18-20). K6 and K8 write the whole [B, T, 59] gradient table. The soft
@@ -371,7 +394,8 @@ def kernel_device_ms(by_name):
 
 
 HARD_KERNELS = ("rasterize_fused_fwd", "rasterize_fused_bwd",
-                "rasterize_bary_fwd", "rasterize_bary_bwd")
+                "rasterize_bary_fwd", "rasterize_bary_bwd", "phong_shade_fwd",
+                "phong_shade_bwd")
 SOFT_KERNELS = ("soft_sil_fwd", "soft_sil_bwd", "soft_fwd", "soft_bwd")
 # The launch counts (utils/profiling.counters) at each kernel's last reset.
 _LAUNCH_BASE = {}
@@ -1970,6 +1994,7 @@ def main():
     from pytorch_mesh_renderer_tpu_torch.ops import (
         rasterize_barycentric_cuda as rb)
     from pytorch_mesh_renderer_tpu_torch.ops import rasterize_cuda as rc
+    from pytorch_mesh_renderer_tpu_torch.ops import shading
     from pytorch_mesh_renderer_tpu_torch.utils import (hard_work, kernels,
                                                        scenes, soft_work)
     from pytorch_mesh_renderer_tpu_torch.utils import test_utils
@@ -2250,6 +2275,70 @@ def main():
     compare_backward(f"teapot {TEAPOT_SIZE}^2 batch {TEAPOT_BATCH} A=9",
                      *teapot_raster, TEAPOT_SIZE, TEAPOT_SIZE)
 
+    # The shading pair vs the plain ops it replaces, on the teapot's
+    # attributes as render rasterizes them (background -1): the image
+    # within KERNEL_ATOL of `_shade_torch`'s (the kernel runs its
+    # operations in their order), the attribute gradient within
+    # SHADING_GRAD_RTOL per pixel of autograd's through it.
+    def shading_operands(scene_b):
+        """(pixel attributes [B, H, W, 9], light positions, light
+        intensities) of a bench teapot scene at TEAPOT_SIZE."""
+        ones = torch.ones(scene_b["eye"].shape[0], **f32)
+        cams = camera.clip_space_transforms(
+            scene_b["eye"], scene_b["center"], scene_b["up"], 40.0 * ones,
+            0.01 * ones, 10.0 * ones, TEAPOT_SIZE, TEAPOT_SIZE)
+        attrs = rasterize_ops.rasterize(
+            scene_b["vertices"], torch.cat([scene_b["normals"],
+                                            scene_b["vertices"],
+                                            scene_b["diffuse"]], 2),
+            scene_b["triangles"], cams, TEAPOT_SIZE, TEAPOT_SIZE,
+            torch.full((9,), -1.0, **f32))
+        return (attrs.contiguous(), scene_b["lights"].contiguous(),
+                scene_b["intensities"].contiguous())
+
+    shade_scenes = {TEAPOT_BATCH: shading_operands(teapot),
+                    SHADE_BATCH: shading_operands(
+                        scenes.build_scene(SHADE_BATCH, dev))}
+    shade_ambient = torch.tensor([[0.1, 0.2, 0.05]] * TEAPOT_BATCH, **f32)
+    for batch, ambient in ((TEAPOT_BATCH, None), (TEAPOT_BATCH, shade_ambient),
+                           (SHADE_BATCH, None)):
+        attrs, light_pos, light_int = shade_scenes[batch]
+        d_images = cotangents((batch, TEAPOT_SIZE, TEAPOT_SIZE, 4))
+        plain_x = attrs.clone().requires_grad_(True)
+        plain = mesh_renderer._shade_torch(plain_x, light_pos, light_int,
+                                           None, None, None, ambient)
+        (plain * d_images).sum().backward()
+        fused_x = attrs.clone().requires_grad_(True)
+        fused = shading.phong_shade_cuda(fused_x, light_pos, light_int,
+                                         ambient)
+        (fused * d_images).sum().backward()
+        torch.cuda.synchronize()
+        label = (f"teapot {TEAPOT_SIZE}^2 batch {batch}"
+                 + (" with ambient" if ambient is not None else ""))
+        image_err = float((fused - plain).abs().max())
+        if not image_err <= KERNEL_ATOL:
+            raise AssertionError(f"{label}: phong_shade_fwd image max abs "
+                                 f"{image_err} > {KERNEL_ATOL}")
+        gap = test_utils.shading_gradient_gap(fused_x.grad, plain_x.grad)
+        if not gap <= test_utils.SHADING_GRAD_RTOL:
+            raise AssertionError(f"{label}: phong_shade_bwd gradient {gap} "
+                                 f"per pixel > {test_utils.SHADING_GRAD_RTOL}")
+        grad_err, grad_scale = grad_error(f"{label} phong_shade_bwd",
+                                          "dattr", fused_x.grad, plain_x.grad,
+                                          GRAD_RTOL)
+        if not grad_scale > 0.0:
+            raise AssertionError(f"{label}: the attribute gradient is zero")
+        errors["phong_shade_fwd"] = max(errors["phong_shade_fwd"], image_err)
+        errors["phong_shade_bwd"] = max(errors["phong_shade_bwd"], grad_err)
+        relative("phong_shade_fwd", image_err, float(plain.abs().max()))
+        relative("phong_shade_bwd", grad_err, grad_scale)
+        log("shade", f"{label}: phong_shade_fwd image max abs "
+            f"{image_err:.3g} (gate {KERNEL_ATOL}), "
+            f"{int((fused != plain).sum())} of {fused.numel()} values differ "
+            f"in their bits; phong_shade_bwd gradient per pixel {gap:.3g} "
+            f"(gate {test_utils.SHADING_GRAD_RTOL}), max abs {grad_err:.3g} "
+            f"of max |value| {grad_scale:.3g}")
+
     # 4. The main path.
     reset_hard_launch_counts()
     images = mesh_renderer.render(*scene_args, TEAPOT_SIZE, TEAPOT_SIZE)
@@ -2257,6 +2346,9 @@ def main():
     main_launches = hard_launch_counts()
     if main_launches["rasterize_fused_fwd"] < 1:
         raise AssertionError("render did not launch the CUDA kernel")
+    if main_launches["phong_shade_fwd"] != 1:
+        raise AssertionError(f"render launched phong_shade_fwd "
+                             f"{main_launches['phong_shade_fwd']} times")
     if tuple(images.shape) != (TEAPOT_BATCH, TEAPOT_SIZE, TEAPOT_SIZE, 4):
         raise AssertionError(f"render returned shape {tuple(images.shape)}")
     if not bool(torch.isfinite(images).all()):
@@ -2269,8 +2361,13 @@ def main():
         f"{', '.join(f'{c:.3f}' for c in coverage)}")
 
     plain_cfg = config_lib.HardRasterizerConfig(backend="torch")
+    reset_hard_launch_counts()
     plain_images = mesh_renderer.render(*scene_args, TEAPOT_SIZE,
                                         TEAPOT_SIZE, config=plain_cfg)
+    torch.cuda.synchronize()
+    if any(hard_launch_counts().values()):
+        raise AssertionError(f"the plain render launched "
+                             f"{hard_launch_counts()}")
     for i in range(TEAPOT_BATCH):
         matched, fraction = test_utils.images_are_near(plain_images[i],
                                                        images[i])
@@ -2342,13 +2439,22 @@ def main():
     for name in ("rasterize_fused_fwd", "rasterize_fused_bwd"):
         if train_launches[name] < 1:
             raise AssertionError(f"the training step did not launch {name}")
+    for name in ("phong_shade_fwd", "phong_shade_bwd"):
+        if train_launches[name] != 1:
+            raise AssertionError(f"the training step launched {name} "
+                                 f"{train_launches[name]} times")
     if not (bool(torch.isfinite(grad).all()) and bool(torch.isfinite(loss))):
         raise AssertionError("the training step's loss or gradient is not "
                              "finite")
     grad_scale = float(grad.abs().max())
     if not grad_scale > 0.0:
         raise AssertionError("the training step's gradient is zero")
+    reset_hard_launch_counts()
     plain_loss, plain_grad = train_step(plain_cfg)
+    torch.cuda.synchronize()
+    if any(hard_launch_counts().values()):
+        raise AssertionError(f"the plain training step launched "
+                             f"{hard_launch_counts()}")
     train_err = float((grad - plain_grad).abs().max())
     plain_scale = float(plain_grad.abs().max())
     if not train_err <= TRAIN_RTOL * plain_scale:
@@ -2584,12 +2690,71 @@ def main():
             f"{name} {ms_:.4f} ms ({by})"
             for name, (ms_, by) in bounds.items()))
 
-    # Each kernel's launches on the path that runs it: K1 on the forward
-    # render, K2 on the training step, K3 and K4 on rasterize_barycentric.
+    # The shading pair at each batch of its check: each kernel's device
+    # time by torch.profiler, its plain version's by CUDA events (the
+    # forward ops under no_grad; the written-out backward) and the device
+    # time of PyTorch's kernels for the same work (the forward ops;
+    # autograd's backward through them). The bound counts bytes alone:
+    # the forward reads 9 attribute floats and writes the image's 4 a
+    # pixel, the backward reads the 9 and the image cotangent's 4 and
+    # writes the attribute gradient's 9; the arithmetic, some tens of fp32
+    # operations a pixel and light, takes under a tenth of the bytes'
+    # time.
+    shade_library = {}
+    for batch in (TEAPOT_BATCH, SHADE_BATCH):
+        attrs, light_pos, light_int = shade_scenes[batch]
+        d_images = cotangents((batch, TEAPOT_SIZE, TEAPOT_SIZE, 4))
+        x = attrs.clone().requires_grad_(True)
+        plain_out = mesh_renderer._shade_torch(x, light_pos, light_int, None,
+                                               None, None, None)
+
+        def plain_forward():
+            with torch.no_grad():
+                return mesh_renderer._shade_torch(attrs, light_pos,
+                                                  light_int, None, None,
+                                                  None, None)
+
+        calls = {
+            "phong_shade_fwd": (
+                lambda: shading.launch_phong_shade_fwd(attrs, light_pos,
+                                                       light_int),
+                plain_forward, plain_forward),
+            "phong_shade_bwd": (
+                lambda: shading.launch_phong_shade_bwd(
+                    attrs, light_pos, light_int, None, d_images),
+                lambda: shading.phong_diffuse_backward_torch(
+                    attrs, light_pos, light_int, None, d_images),
+                lambda: torch.autograd.grad(plain_out, x, d_images,
+                                            retain_graph=True))}
+        pixels = batch * TEAPOT_SIZE ** 2
+        shade_bounds = {"phong_shade_fwd": bound_ms(pixels * 4 * (9 + 4), 0),
+                        "phong_shade_bwd": bound_ms(
+                            pixels * 4 * (9 + 4 + 9), 0)}
+        for name, (kernel_call, plain_call, library_call) in calls.items():
+            kernel_ms_ = common.device_ms(kernel_call, dev, 50)
+            plain_ms_ = cuda_time_ms(plain_call, iters=10)
+            library_device_ms = common.device_ms(library_call, dev, 10)
+            bound = shade_bounds[name]
+            log("times", f"{card} | {name}, teapot {TEAPOT_SIZE}^2 batch "
+                f"{batch}: kernel device {kernel_ms_:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}), "
+                f"{bound[0] / kernel_ms_:.1%} of the kernel's; plain version "
+                f"{plain_ms_:.4f} ms (CUDA events); PyTorch's kernels for "
+                f"it {library_device_ms:.4f} ms device")
+            if batch == TEAPOT_BATCH:
+                ms[name] = (kernel_ms_, plain_ms_)
+                bounds[name] = bound
+                shade_library[name] = library_device_ms
+
+    # Each kernel's launches on the path that runs it: K1 and the shading
+    # forward on the forward render, K2 and the shading backward on the
+    # training step, K3 and K4 on rasterize_barycentric.
     launches = {"rasterize_fused_fwd": main_launches["rasterize_fused_fwd"],
                 "rasterize_fused_bwd": train_launches["rasterize_fused_bwd"],
                 "rasterize_bary_fwd": bary_launches["rasterize_bary_fwd"],
-                "rasterize_bary_bwd": bary_launches["rasterize_bary_bwd"]}
+                "rasterize_bary_bwd": bary_launches["rasterize_bary_bwd"],
+                "phong_shade_fwd": main_launches["phong_shade_fwd"],
+                "phong_shade_bwd": train_launches["phong_shade_bwd"]}
 
     # 8-12. The soft renderer: K7 on the soft render, K8 on the soft step,
     # K5 and K6 on the silhouette step.
@@ -2609,6 +2774,7 @@ def main():
     launches.update(mb_launches)
     ms.update({name: (mb_ms[name], mb_plain_ms[name]) for name in mb_ms})
     bounds.update(mb_bounds)
+    library_ms = {**library_ms, **shade_library}
 
     # 14. The captured training step and loop, and the bench.
     t0 = time.perf_counter()

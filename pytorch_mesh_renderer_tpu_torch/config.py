@@ -36,7 +36,11 @@ class HardRasterizerConfig(_RasterizerConfig):
       backend: 'auto' (the CUDA kernel for CUDA tensors, the plain PyTorch
         version for CPU tensors), 'cuda' (the kernel; a CPU tensor raises)
         or 'torch' (the plain version on any device — the reference that
-        tests and chip_smoke.py hold the kernel against).
+        tests and chip_smoke.py hold the kernel against). The renderer's
+        shading follows it: 'auto' shades diffuse and ambient light on a
+        card with the shading kernels and takes the plain ops for specular
+        shading or gradients into the lights, 'cuda' raises for those, and
+        'torch' always takes the plain ops.
       triangle_chunk: triangles per step of the plain version's dense
         z-buffer; bounds its peak memory at B*H*W*chunk intermediates.
     """

@@ -14,6 +14,11 @@ there (`utils/capture.constant`: a number by a device fill, a sequence or
 array copied once per device, so a step that passes them can be captured
 into a CUDA graph after its warm-up).
 
+Under the default backend 'auto' the diffuse and ambient shading runs on
+a card as the hand-written kernel pair of `ops/shading.phong_shade_cuda`;
+specular shading and gradients into the lights take the plain ops, which
+every call takes under 'torch'; under 'cuda' they raise (`_shade`).
+
 Each call counts one `render.calls` and, while a `torch.profiler`
 profile records, is an `mr.render` span whose shading is an `mr.shade`
 span (`utils/profiling`); the camera and the rasterizer open their own.
@@ -30,7 +35,8 @@ from ..ops import camera
 from ..ops.math_utils import normalize
 from ..ops.mesh import int32_index
 from ..ops.rasterize import rasterize
-from ..ops.shading import phong_shader, tone_mapper  # re-export: tone_mapper
+from ..ops.shading import (  # re-export: tone_mapper
+    phong_shade_cuda, phong_shader, tone_mapper)
 from ..utils import profiling
 from ..utils.capture import constant
 from ..utils.debug import debug_check_finite
@@ -210,7 +216,7 @@ def _render(vertices, triangles, normals, diffuse_colors, camera_position,
     with profiling.annotate("mr.shade"):
         images = _shade(pixel_attributes, light_positions, light_intensities,
                         camera_position, specular_colors,
-                        shininess_coefficients, ambient_color)
+                        shininess_coefficients, ambient_color, config)
     if config_lib.debug_checks_enabled():
         debug_check_finite(images, "mesh_renderer.render output")
     return images
@@ -218,10 +224,43 @@ def _render(vertices, triangles, normals, diffuse_colors, camera_position,
 
 def _shade(pixel_attributes, light_positions, light_intensities,
            camera_position, specular_colors, shininess_coefficients,
-           ambient_color):
+           ambient_color, config):
     """Phong shading of the rasterized attributes (normals, positions,
     diffuse, then specular and shininess when given) under the pixel mask
-    of covered pixels: the diffuse attribute's background is -1."""
+    of covered pixels: the diffuse attribute's background is -1.
+
+    The route follows `config.backend`, as the rasterizer's does. Under
+    'torch' every call runs the plain ops (`_shade_torch`), the reference
+    the kernels are held to. Under 'auto' a call on a card without
+    specular terms and with no gradient wanted for the lights or the
+    ambient colour runs the shading kernels (`shading.phong_shade_cuda`),
+    and any other the plain ops; under 'cuda' those others raise. A call on
+    a card that runs the plain ops counts one `shade.unfused`."""
+    backend = (config or config_lib.HARD_CONFIG).backend
+    on_card = pixel_attributes.is_cuda
+    if backend == "cuda" or (backend == "auto" and on_card):
+        lighting = (light_positions, light_intensities, ambient_color)
+        wants_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in lighting)
+        if specular_colors is None and not wants_grad:
+            return phong_shade_cuda(pixel_attributes, *lighting)
+        if backend == "cuda":
+            raise ValueError(
+                "backend='cuda' shades diffuse and ambient light with no "
+                "gradient for the lights or the ambient colour; specular "
+                "shading and light gradients need backend='auto' or 'torch'")
+    if on_card:
+        profiling.count("shade.unfused")
+    return _shade_torch(pixel_attributes, light_positions, light_intensities,
+                        camera_position, specular_colors,
+                        shininess_coefficients, ambient_color)
+
+
+def _shade_torch(pixel_attributes, light_positions, light_intensities,
+                 camera_position, specular_colors, shininess_coefficients,
+                 ambient_color):
+    """`_shade` in plain PyTorch ops: the slices, the mask and
+    `phong_shader`, with autograd through them."""
     pixel_normals = normalize(pixel_attributes[..., 0:3], p=2, dim=3)
     pixel_positions = pixel_attributes[..., 3:6]
     pixel_diffuse = pixel_attributes[..., 6:9]

@@ -154,13 +154,15 @@ def load_library() -> ctypes.CDLL:
     lib.mxu_full_prod_shape.argtypes = [i32] * 3 + [ptr]
     lib.mxu_full_tc.argtypes = [ptr] * 7 + [i32] * 3 + [f32, ptr]
     lib.patch_eval.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
+    lib.phong_shade_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.phong_shade_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     for entry in (lib.rasterize_fused_fwd, lib.rasterize_fused_bwd,
                   lib.rasterize_bary_fwd, lib.rasterize_bary_bwd,
                   lib.soft_fwd, lib.soft_bwd, lib.soft_sil_fwd,
                   lib.soft_sil_bwd, lib.mxu_edge_fma, lib.mxu_edge_tc,
                   lib.mxu_full_prod, lib.mxu_full_prod_shape,
-                  lib.mxu_full_tc, lib.patch_eval,
-                  *occupancy):
+                  lib.mxu_full_tc, lib.patch_eval, lib.phong_shade_fwd,
+                  lib.phong_shade_bwd, *occupancy):
         entry.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p

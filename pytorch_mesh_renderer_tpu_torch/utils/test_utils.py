@@ -836,3 +836,61 @@ def compare_soft_backward(scene, k7, alpha, d_rgba, row_offset=0,
                 + grad_errors("dsigma" + label, sil_dsigma.sum(),
                               plain_sil[1], rtol))
     return dtable, sil_grads[0][0], {"soft_bwd": bwd, "soft_sil_bwd": sil}
+
+
+# The hard renderer's diffuse shading (`ops/shading.phong_shade_cuda`, its
+# backward `phong_diffuse_backward_torch`) against autograd through the
+# plain ops. "random": A = 12 columns (three beyond the shaded nine) and a
+# background row; "ties": axis-aligned normals at the origin under lights
+# on the axes, so n.l is exactly 0 or exactly 1 (clip's 1/2 derivative);
+# "zero_normals": normals of length 0 and 1e-14 (below normalize's eps),
+# on covered and background pixels.
+SHADING_SCENES = ("random", "ties", "zero_normals")
+SHADING_AXIS_LIGHTS = ((0.0, 0.0, 2.0), (3.0, 0.0, 0.0), (0.0, -4.0, 0.0))
+# Images: the kernel repeats the plain ops' operations in their order.
+SHADING_IMAGE_ATOL = 1e-6
+# Gradients: per pixel, of the plain gradient's largest |value| there
+# (a pixel with a normal below eps has gradients of ~1e12).
+SHADING_GRAD_RTOL = 1e-5
+
+
+def shading_scene(name, lights, ambient, device, batch=2, height=12,
+                  width=10):
+    """(pixel_attributes [B, H, W, A], light_positions [B, L, 3],
+    light_intensities [B, L, 3], ambient_color [B, 3] or None) of one of
+    SHADING_SCENES, seeded."""
+    rng = np.random.RandomState(SHADING_SCENES.index(name))
+    n_attr = 12 if name == "random" else 9
+    x = rng.randn(batch, height, width, n_attr)
+    x[:, 0] = -1.0  # a background row, as the rasterizer composites it
+    light_pos = rng.randn(batch, lights, 3) * 3.0
+    if name == "ties":
+        covered = (batch, height - 1, width)
+        pick = rng.randint(0, 6, covered)  # +x, -x, +y, -y, +z, -z
+        length = rng.choice([0.5, 1.0, 2.0, 3.0], covered)  # exact norms
+        x[:, 1:, :, 0:3] = np.eye(3)[pick // 2] * (
+            np.where(pick % 2, -1.0, 1.0) * length)[..., None]
+        x[:, 1:, :, 3:6] = 0.0
+        x[:, 1:, :, 6:9] = np.abs(x[:, 1:, :, 6:9])
+        light_pos = np.tile(np.array(SHADING_AXIS_LIGHTS[:lights]),
+                            [batch, 1, 1])
+    elif name == "zero_normals":
+        x[:, :, ::3, 0:3] = 0.0
+        x[:, :, 1::3, 0:3] *= 1e-14
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(x, **f32), torch.tensor(light_pos, **f32),
+            torch.tensor(rng.uniform(0.2, 1.5, (batch, lights, 3)), **f32),
+            torch.tensor(rng.uniform(0.0, 0.3, (batch, 3)), **f32)
+            if ambient else None)
+
+
+def shading_gradient_gap(got, want):
+    """The largest gap of `got` from `want` ([..., A] attribute gradients)
+    per pixel, over the largest |want| at that pixel. Raises
+    AssertionError unless both are NaN at the same places."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError("the gradients are NaN at different places")
+    got, want = torch.nan_to_num(got), torch.nan_to_num(want)
+    scale = want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return float(((got - want).abs() / scale).max())

@@ -59,6 +59,19 @@ capture as chains of three graphs cut at their two gathers: the cow
 fit's captured steps and loop equal its eager steps and the unsharded
 captured steps bit for bit, the hard step's within 1e-5.
 
+The hard renderer's diffuse shading (`csrc/phong_shade.cu`, through
+`ops/shading.phong_shade_cuda`) against the plain ops it replaces, on
+`test_utils.SHADING_SCENES`, lights shared by the batch and the teapot's
+rasterized attributes at 256x256 batch 4, at 1, 2 and 3 lights, with and
+without ambient: images within 1e-6 (the kernel runs the plain ops'
+operations in their order), attribute gradients within 1e-5 per pixel of
+autograd's through the plain ops and of `phong_diffuse_backward_torch`
+(NaN where autograd's is, at zero-length normals). A captured hard step
+launches each shading kernel once, at its capture; under the default
+backend specular shading and gradients into the lights take the plain ops
+and count `shade.unfused`; backend 'torch' never launches the pair and
+'cuda' raises for those calls.
+
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
 variants are held at their modules' tolerances (`mxu_edge.TC_RTOL`,
@@ -1157,6 +1170,39 @@ def test_examples_run_through_the_kernels(dev, tmp_path):
     assert np.isfinite(cube["losses"]).all() and len(cube["losses"]) == 5
 
 
+HARD_EXAMPLES = {
+    "render_teapot_hard": ["--width", "64", "--height", "48", "--out",
+                           "teapot.png"],
+    "optimize_cube_rotation": ["--steps", "3", "--size", "32",
+                               "--out-video", "cube.mp4", "--out-plot",
+                               "cube.png"],
+    "optimize_teapot_rotation": ["--steps", "3", "--size", "32",
+                                 "--out-video", "teapot.mp4", "--out-plot",
+                                 "teapot.png"],
+    "optimize_camera_pose": ["--steps", "3", "--width", "32", "--height",
+                             "24", "--target", "no_target.png",
+                             "--out-video", "pose.mp4", "--out-plot",
+                             "pose.png"]}
+
+
+@pytest.mark.parametrize("example", sorted(HARD_EXAMPLES))
+def test_the_hard_examples_shade_through_the_kernels(dev, tmp_path,
+                                                     monkeypatch, example):
+    """Every example of the hard renderer shades through the kernel pair
+    on the card and never through the plain ops."""
+    import importlib
+
+    module = importlib.import_module(
+        "pytorch_mesh_renderer_tpu_torch.examples." + example)
+    monkeypatch.chdir(tmp_path)
+    unfused = profiling.counters().get("shade.unfused", 0)
+    (before,) = _launches("phong_shade_fwd")
+    module.main(HARD_EXAMPLES[example] + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    assert _launches("phong_shade_fwd")[0] > before
+    assert profiling.counters().get("shade.unfused", 0) == unfused
+
+
 def test_fit_checkpoint_moves_between_cpu_and_card(dev, tmp_path):
     """A checkpoint saved on the CPU (Adam not capturable) resumes on the
     card through the captured loop, and the card's (capturable) resumes
@@ -1503,3 +1549,190 @@ def test_backward_kernels_run_to_run_spread_is_recorded(dev):
         assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
         spread = float((a - b).abs().max() / a.abs().max())
         print(f"{name}: run-to-run spread {spread:.3g} of max |value|")
+
+
+TEAPOT_LIGHTS = ((-2.0, 2.0, 4.0), (3.0, -1.0, 4.0), (0.0, 3.0, 2.0))
+
+
+def _shading_operands(scene, lights, ambient, dev):
+    """`test_utils.shading_scene`'s operands; on "shared_lights" those of
+    "random" with lights of shape [1, L, 3] shared by the batch, which the
+    plain ops broadcast; on "teapot" the bench teapot's rasterized
+    [4, 256, 256, 9] attributes (normal, position, diffuse over background
+    -1, as `mesh_renderer.render` rasterizes them) under the first
+    `lights` of TEAPOT_LIGHTS."""
+    if scene == "shared_lights":
+        attrs, light_pos, light_int, amb = test_utils.shading_scene(
+            "random", lights, ambient, dev)
+        return attrs, light_pos[:1], light_int[:1], amb
+    if scene != "teapot":
+        return test_utils.shading_scene(scene, lights, ambient, dev)
+    teapot = scenes.build_scene(4, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ones = torch.ones(4, **f32)
+    cams = camera.clip_space_transforms(
+        teapot["eye"], teapot["center"], teapot["up"], 40.0 * ones,
+        0.01 * ones, 10.0 * ones, 256, 256)
+    attrs = rasterize_ops.rasterize(
+        teapot["vertices"], torch.cat([teapot["normals"], teapot["vertices"],
+                                       teapot["diffuse"]], 2),
+        teapot["triangles"], cams, 256, 256, torch.full((9,), -1.0, **f32))
+    light_pos = torch.tensor([TEAPOT_LIGHTS[:lights]] * 4, **f32)
+    amb = torch.tensor([[0.1, 0.2, 0.05]] * 4, **f32) if ambient else None
+    return attrs, light_pos, torch.full((4, lights, 3), 0.8, **f32), amb
+
+
+@pytest.mark.parametrize("ambient", [False, True])
+@pytest.mark.parametrize("lights", [1, 2, 3])
+@pytest.mark.parametrize("scene", test_utils.SHADING_SCENES
+                         + ("shared_lights", "teapot"))
+def test_shading_kernels_match_the_plain_ops(dev, scene, lights, ambient):
+    """The fused forward against `_shade_torch` (max abs 1e-6; the count of
+    elements whose bits differ is printed), the fused backward against
+    autograd through it and against `phong_diffuse_backward_torch` (per
+    pixel 1e-5, NaN at the same places), one launch each way."""
+    from pytorch_mesh_renderer_tpu_torch.ops import shading
+
+    attrs, light_pos, light_int, amb = _shading_operands(scene, lights,
+                                                         ambient, dev)
+    d_images = test_utils.soft_cotangents(*attrs.shape[:3], dev)
+    plain_x = attrs.clone().requires_grad_(True)
+    plain = mesh_renderer._shade_torch(plain_x, light_pos, light_int, None,
+                                       None, None, amb)
+    (plain * d_images).sum().backward()
+    before = _launches("phong_shade_fwd", "phong_shade_bwd")
+    fused_x = attrs.clone().requires_grad_(True)
+    fused = shading.phong_shade_cuda(fused_x, light_pos, light_int, amb)
+    (fused * d_images).sum().backward()
+    torch.cuda.synchronize()
+    assert _launches("phong_shade_fwd", "phong_shade_bwd") == (
+        before[0] + 1, before[1] + 1)
+    assert fused.shape == plain.shape
+    assert float((fused - plain).abs().max()) <= test_utils.SHADING_IMAGE_ATOL
+    print(f"{scene} L={lights} ambient={ambient}: "
+          f"{int((fused != plain).sum())} of {fused.numel()} image values "
+          "differ in their bits")
+    written_out = shading.phong_diffuse_backward_torch(
+        attrs, light_pos, light_int, amb, d_images)
+    for want in (plain_x.grad, written_out):
+        assert test_utils.shading_gradient_gap(
+            fused_x.grad, want) <= test_utils.SHADING_GRAD_RTOL
+    assert bool((fused_x.grad[..., 9:] == 0.0).all())
+
+
+def test_a_captured_hard_step_shades_through_the_kernels(dev):
+    """The captured hard step launches each shading kernel once at its
+    capture and never at a replay, takes no plain shading, and equals its
+    eager steps within the hard backward's 1e-4 (K2's atomics)."""
+    loss_fn, start, batch = _cube_fit(dev, silhouette=False)
+    param = start.clone().requires_grad_(True)
+    optimizer = torch.optim.SGD([param], lr=0.1)
+    eager = []
+    for _ in range(4):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn([param], batch)
+        loss.backward()
+        optimizer.step()
+        eager.append(loss.detach())
+    names = ("phong_shade_fwd", "phong_shade_bwd")
+    unfused = profiling.counters().get("shade.unfused", 0)
+    captured = start.clone().requires_grad_(True)
+    step = parallel.make_train_step(loss_fn,
+                                    torch.optim.SGD([captured], lr=0.1))
+    before = _launches(*names)
+    losses = [step(batch)]  # an eager step, then the capture
+    assert step.graph is not None
+    assert _launches(*names) == (before[0] + 2, before[1] + 2)
+    losses += [step(batch) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _launches(*names) == (before[0] + 2, before[1] + 2)
+    assert profiling.counters().get("shade.unfused", 0) == unfused
+    torch.testing.assert_close(torch.stack(losses), torch.stack(eager),
+                               rtol=1e-4, atol=0)
+    change = float((param - start).abs().max())
+    assert change > 0.0
+    assert float((captured - param).abs().max()) <= 1e-4 * change
+
+
+def test_shade_unfused_counts_specular_and_light_gradient_calls(dev):
+    """Specular shading and gradients wanted for the lights or the ambient
+    colour take the plain ops and count one `shade.unfused` a call; a light
+    that requires a gradient under `no_grad` wants none and takes the
+    kernels."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    v, t, n = (a.to(dev) for a in shapes.cube(2.0))
+    lights = torch.tensor([[[0.0, 0.0, 6.0]]], **f32)
+    intensities = torch.ones(1, 1, 3, **f32)
+    ambient = torch.full((1, 3), 0.1, **f32)
+
+    def render(**kwargs):
+        scene = dict(light_positions=lights, light_intensities=intensities,
+                     ambient_color=ambient)
+        scene.update(kwargs)
+        return mesh_renderer.render(
+            v[None], t.flip(1).contiguous(), n[None], torch.ones_like(v[None]),
+            torch.tensor([2.0, 3.0, 6.0], **f32), torch.zeros(3, **f32),
+            torch.tensor([0.0, 1.0, 0.0], **f32), image_width=32,
+            image_height=24, **scene)
+
+    def counts():
+        c = profiling.counters()
+        return (c.get("shade.unfused", 0), c.get("launches.phong_shade_fwd",
+                                                 0))
+
+    cases = [dict(specular_colors=torch.ones_like(v[None]),
+                  shininess_coefficients=torch.full((1,), 4.0, **f32))]
+    for name in ("light_positions", "light_intensities", "ambient_color"):
+        wanting = {"light_positions": lights, "light_intensities": intensities,
+                   "ambient_color": ambient}[name].clone().requires_grad_(True)
+        cases.append({name: wanting})
+    for kwargs in cases:
+        before = counts()
+        image = render(**kwargs)
+        assert counts() == (before[0] + 1, before[1])
+        wanting = [x for x in kwargs.values() if x.requires_grad]
+        if wanting:
+            image[..., :3].sum().backward()
+            assert bool(torch.isfinite(wanting[0].grad).all())
+            assert float(wanting[0].grad.abs().max()) > 0.0
+    before = counts()
+    with torch.no_grad():
+        fused = render(light_positions=lights.clone().requires_grad_(True))
+    assert counts() == (before[0], before[1] + 1)
+    assert torch.equal(fused, render())
+
+
+def test_the_shading_follows_the_backend(dev):
+    """backend='torch' shades through the plain ops, forward and backward,
+    launching no shading kernel and counting one `shade.unfused` a call;
+    backend='cuda' launches the pair. (That 'cuda' raises for what the
+    pair does not shade is tests/test_torch_shading.py's.)"""
+    f32 = dict(dtype=torch.float32, device=dev)
+    v, t, n = (a.to(dev) for a in shapes.cube(2.0))
+    lights = torch.tensor([[[0.0, 0.0, 6.0]]], **f32)
+    intensities = torch.ones(1, 1, 3, **f32)
+    ambient = torch.full((1, 3), 0.1, **f32)
+    names = ("phong_shade_fwd", "phong_shade_bwd")
+
+    grads = {}
+    for backend in ("torch", "cuda"):
+        vertices = v[None].clone().requires_grad_(True)
+        unfused = profiling.counters().get("shade.unfused", 0)
+        before = _launches(*names)
+        image = mesh_renderer.render(
+            vertices, t.flip(1).contiguous(), n[None],
+            torch.ones_like(v[None]), torch.tensor([2.0, 3.0, 6.0], **f32),
+            torch.zeros(3, **f32), torch.tensor([0.0, 1.0, 0.0], **f32),
+            lights, intensities, 32, 24, ambient_color=ambient,
+            config=config_lib.HardRasterizerConfig(backend=backend))
+        (image[..., :3] ** 2).mean().backward()
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(_launches(*names), before))
+        assert launched == ((0, 0) if backend == "torch" else (1, 1))
+        assert profiling.counters().get("shade.unfused", 0) == unfused + (
+            backend == "torch")
+        grads[backend] = vertices.grad
+    scale = float(grads["torch"].abs().max())
+    assert scale > 0.0
+    assert float((grads["cuda"] - grads["torch"]).abs().max()) <= (
+        1e-5 * scale)
