@@ -228,6 +228,20 @@ The sharded wrappers follow:
                unsharded and on the 2x1 mesh over the card. NCCL (one rank
                per card) is not exercised on one card.
 
+SoftRas's single-view reconstruction (`examples/recon.py`) follows:
+
+ 18. recon   — the reconstruction step at the benchmark cell's shapes (64
+               objects x 2 views of 64x64 a batch, the published widths):
+               K5 and K6 on the table the step itself packs (256
+               silhouettes of 128 decoded meshes of 1,280 triangles, its
+               own cameras, sigma and blur), against their plain packed
+               versions: alpha within KERNEL_ATOL, the table gradient and
+               dsigma under a seeded cotangent within SOFT_GRAD_RTOL of the
+               plain tensor's max |value| (the table per input group).
+               Then the step through `make_train_step`: its first call
+               launches K5 and K6 once each in its eager step and once at
+               the capture, three replays none, and K7/K8 never.
+
 Then it prints the kernel summary as one JSON line (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, fp32 at 67 TFLOP/s and tensor-core TF32 at 495
@@ -336,6 +350,10 @@ SHARD_SIL_SCALED_ATOL = 2e-4
 LOAD_OBJ_RUNS = 5
 # Phase 17: each rank's seconds to start, run its job and exit.
 RANK_TIMEOUT = 300.0
+# Phase 18: the benchmark cell's objects a batch and a data set of seeded
+# images (random colours, a disc of alpha) large enough that few images of
+# a batch repeat.
+RECON_OBJECTS, RECON_DATASET = 64, 256
 
 CUBE_VERTICES = [[-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1],
                  [1, -1, 1], [1, -1, -1], [1, 1, -1], [1, 1, 1]]
@@ -1853,6 +1871,104 @@ def multiprocess_phase(dev, card):
         "s")
 
 
+def recon_phase(dev, card):
+    """Phase 18: the reconstruction step's silhouette kernels against their
+    plain versions on the step's own table, and its launches under
+    capture."""
+    import torch
+
+    from pytorch_mesh_renderer_tpu_torch.examples import recon
+    from pytorch_mesh_renderer_tpu_torch.ops import soft_rasterize_cuda as sc
+    from pytorch_mesh_renderer_tpu_torch.utils import test_utils
+
+    size = recon.IMAGE_SIZE
+    g = torch.Generator().manual_seed(7)
+    shape = (RECON_DATASET, recon.VIEWS)
+    rgb = torch.rand(shape + (3, size, size), generator=g)
+    centre = torch.rand(shape + (2, 1, 1), generator=g) * 0.4 - 0.2
+    radius = torch.rand(shape + (1, 1), generator=g) * 0.3 + 0.3
+    c = (torch.arange(size) + 0.5) * 2 / size - 1
+    d2 = ((c[:, None] - centre[..., 0, :, :]) ** 2
+          + (c[None, :] - centre[..., 1, :, :]) ** 2)
+    alpha_in = (d2 < radius ** 2).to(torch.float32)[:, :, None]
+    images = (torch.cat([rgb, alpha_in], 2) * 255).round().to(torch.uint8)
+    torch.manual_seed(0)
+    net = recon.ReconstructionNet().to(dev)
+    loader = recon.Loader(images, recon.viewpoints(), RECON_OBJECTS, 5, dev)
+    trainer = recon.Reconstruction(net)
+
+    # The table the step packs, kept as render_silhouette packs it.
+    tables = []
+    pack = sc.pack_triangle_data
+
+    def keep(*args, **kwargs):
+        table = pack(*args, **kwargs)
+        tables.append(table.detach())
+        return table
+
+    batch = loader()
+    sc.pack_triangle_data = keep
+    try:
+        with torch.no_grad():
+            trainer.loss(list(net.parameters()), batch)
+    finally:
+        sc.pack_triangle_data = pack
+    (table,) = tables
+    meshes = table.shape[0] // 2
+    distinct = torch.unique(table[:meshes].reshape(meshes, -1), dim=0)
+    if table.shape[:2] != (4 * RECON_OBJECTS, 1280) or (
+            distinct.shape[0] < meshes // 2):
+        raise AssertionError(f"recon: table {tuple(table.shape)}, "
+                             f"{distinct.shape[0]} distinct meshes")
+    params = sc.make_params(recon.SIGMA, 1.0, recon.BLUR_RADIUS, 0, dev)
+    alpha = sc.launch_sil_fwd(table, params, size, size, size)
+    plain_alpha = sc.soft_forward_torch_packed(
+        table, None, params[0], params[1], params[2], size, size, 0, size,
+        True)
+    alpha_err = float((alpha - plain_alpha).abs().max())
+    if not alpha_err <= KERNEL_ATOL:
+        raise AssertionError(f"recon: soft_sil_fwd alpha max abs "
+                             f"{alpha_err} > {KERNEL_ATOL}")
+    d_alpha = torch.randn(
+        tuple(alpha.shape), generator=torch.Generator(device=dev).manual_seed(
+            9), dtype=torch.float32, device=dev)
+    dtable, dsigma = sc.launch_sil_bwd(table, params, alpha, d_alpha, size)
+    plain_dtable, plain_dsigma = sc.soft_silhouette_backward_torch_packed(
+        table, params[0], params[2], size, size, 0, size, d_alpha)
+    found = (test_utils.grad_errors("recon dtable", dtable, plain_dtable,
+                                    test_utils.SOFT_GRAD_RTOL,
+                                    test_utils.SOFT_DTABLE_GROUPS)
+             + test_utils.grad_errors("recon dsigma", dsigma.sum(),
+                                      plain_dsigma,
+                                      test_utils.SOFT_GRAD_RTOL))
+    coverage = float((plain_alpha > 0.5).float().mean())
+    log("recon", f"step's table {tuple(table.shape)} ({distinct.shape[0]} "
+        f"distinct of {meshes} meshes, {coverage:.3f} of pixels above 0.5):"
+        f" soft_sil_fwd alpha max abs {alpha_err:.3g} (gate {KERNEL_ATOL});"
+        " soft_sil_bwd max abs error of max |plain| (gate "
+        f"{test_utils.SOFT_GRAD_RTOL}): " + ", ".join(
+            f"{label} {err:.3g} of {scale:.3g}"
+            for label, err, scale in found if scale > 0.0))
+
+    reset_soft_launch_counts()
+    trainer(loader())  # an eager step, then the capture
+    first = soft_launch_counts()
+    reset_soft_launch_counts()
+    for _ in range(3):
+        loss = trainer(loader())
+    torch.cuda.synchronize()
+    replays = soft_launch_counts()
+    want = {"soft_sil_fwd": 2, "soft_sil_bwd": 2, "soft_fwd": 0,
+            "soft_bwd": 0}
+    if (first != want or any(replays.values())
+            or trainer.step.graph is None or not bool(torch.isfinite(loss))):
+        raise AssertionError(f"recon step: launches {first} at its first "
+                             f"call, {replays} in 3 replays, loss {loss}")
+    log("recon", f"{card} | step of {4 * RECON_OBJECTS} silhouettes: first "
+        f"call (eager step, capture) launches {first}; 3 replays launch "
+        f"none; loss {float(loss):.5f}")
+
+
 def loop_phase(dev, card, teapot):
     """Phase 14: the captured training step and loop
     (`parallel.make_train_step`, `make_train_loop`) and the bench.
@@ -2789,6 +2905,9 @@ def main():
 
     # 17. The sharded wrappers and the fit step across processes.
     multiprocess_phase(dev, card)
+
+    # 18. SoftRas's reconstruction step: K5/K6 on its table, its capture.
+    recon_phase(dev, card)
     log("examples", f"the script took {time.perf_counter() - started:.1f} s")
 
     print(card, flush=True)

@@ -12,4 +12,8 @@ which returns what it computed:
   optimize_camera_pose      the camera's eye and look rotation (hard)
   fit_shape_multiview       the flagship: a sphere fitted to four cow
                             silhouettes (K5, K6)
+
+and `recon`, a module without a JAX twin: SoftRas's single-view mesh
+reconstruction (a network trained through the silhouette kernels), its
+network, loss, data loader and captured training step.
 """

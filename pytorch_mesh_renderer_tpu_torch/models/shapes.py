@@ -1,9 +1,11 @@
-"""Procedural test meshes (uv-sphere, cube).
+"""Procedural meshes (uv-sphere, icosphere, cube).
 
-Port of `pytorch_mesh_renderer_tpu/models/shapes.py`. Geometry is built on
-the host in numpy and returned as CPU tensors (f32 positions and normals,
-int32 triangles) with the same vertex order, indexing and CCW winding as
-the JAX package; move them with `.to(device)`.
+Port of `pytorch_mesh_renderer_tpu/models/shapes.py`, plus the closed
+icosphere that the reconstruction network deforms (`examples/recon.py`),
+which the JAX package does not have. Geometry is built on the host in
+numpy and returned as CPU tensors (f32 positions and normals, int32
+triangles); the sphere and cube have the same vertex order, indexing and
+CCW winding as the JAX package. Move them with `.to(device)`.
 """
 
 from __future__ import annotations
@@ -70,6 +72,52 @@ def sphere(radius: float, resolution: int = 25):
     norms = np.linalg.norm(vertices, axis=-1, keepdims=True)
     normals = vertices / np.maximum(norms, 1e-12)
     return _as_tensors(vertices, triangles, normals)
+
+
+def icosphere(subdivisions: int = 3):
+    """Unit icosphere: the icosahedron with each face split into four
+    `subdivisions` times, new vertices pushed out to the unit sphere.
+
+    Level n has 10 * 4^n + 2 vertices and 20 * 4^n triangles (level 3:
+    642 and 1,280, the vertex and face counts of SoftRas's
+    `sphere_642.obj`), and every edge borders exactly two triangles, so
+    the mesh is closed. The twelve icosahedron vertices come first, then
+    each level's edge midpoints in the order their edges are met.
+
+    Returns:
+      (vertices [V, 3] f32, triangles [T, 3] int32, normals [V, 3] f32),
+      CCW winding viewed from outside; the normals equal the vertices.
+    """
+    if subdivisions < 0:
+        raise ValueError("subdivisions must be >= 0")
+    phi = (1.0 + 5.0 ** 0.5) / 2.0
+    vertices = [[-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+                [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+                [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1]]
+    vertices = [list(np.asarray(v, np.float64) / np.linalg.norm(v))
+                for v in vertices]
+    triangles = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                 [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                 [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                 [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(subdivisions):
+        midpoints = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in midpoints:
+                m = (np.asarray(vertices[a]) + np.asarray(vertices[b])) / 2
+                vertices.append(list(m / np.linalg.norm(m)))
+                midpoints[key] = len(vertices) - 1
+            return midpoints[key]
+
+        finer = []
+        for a, b, c in triangles:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            finer += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        triangles = finer
+    vertices = np.asarray(vertices, np.float32)
+    return _as_tensors(vertices, triangles, vertices)
 
 
 def cube(size: float):

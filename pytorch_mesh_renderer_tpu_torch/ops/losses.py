@@ -8,6 +8,13 @@ the edges' two ends, as it is two scatter-adds in the JAX package; here it
 and the gathers of both losses go through `ops/mesh.py`'s deterministic
 `segment_sum` and `gather`, whose plan comes from the edges tensor, so a
 fit's gradient has the same bits on every run.
+
+The batched losses of SoftRas's single-view reconstruction
+(`examples/recon.py`; Liu et al. 2019, `soft_renderer/losses.py`) take a
+batch of meshes [B, V, 3] or silhouettes [B, H, W]: `iou_loss`,
+`squared_laplacian_loss` and `flatten_loss`. Their gathers and sums go
+through the same `gather` and `segment_sum`, and none reads a value on
+the host, so a captured step may call them.
 """
 
 from __future__ import annotations
@@ -40,16 +47,21 @@ def laplacian_smoothing_loss(vertices: torch.Tensor,
       vertices: [V, 3] f32.
       edges: [E, 2] int unique undirected edges.
     """
-    n_vertices = vertices.shape[0]
+    lap = _uniform_laplacian(vertices, edges)
+    return torch.sum(torch.sqrt(torch.sum(lap * lap, dim=1))) / len(vertices)
+
+
+def _uniform_laplacian(vertices, edges):
+    """(L v)_i = the mean of v_i's neighbours minus v_i, [..., V, 3]."""
+    n_vertices = vertices.shape[-2]
     # Each end of an edge takes the other end: position (i, 0) of the
     # edges sums vertex edges[i, 1], and (i, 1) sums edges[i, 0].
-    neighbor_sum = segment_sum(gather(vertices, edges).flip(1), edges,
+    neighbor_sum = segment_sum(gather(vertices, edges).flip(-2), edges,
                                n_vertices)
     degree = vertex_plan(edges, n_vertices).degree.to(vertices.dtype)
     inv_degree = torch.where(degree > 0.0,
                              1.0 / torch.clamp(degree, min=1.0), 0.0)
-    lap = neighbor_sum * inv_degree[:, None] - vertices
-    return torch.sum(torch.sqrt(torch.sum(lap * lap, dim=1))) / n_vertices
+    return neighbor_sum * inv_degree[:, None] - vertices
 
 
 def image_l1_loss(rendered: torch.Tensor,
@@ -75,3 +87,65 @@ def silhouette_iou(rendered_alpha: torch.Tensor, target_alpha: torch.Tensor,
     inter = torch.sum(rendered_alpha * target_alpha)
     union = torch.sum(rendered_alpha) + torch.sum(target_alpha) - inter
     return inter / torch.clamp(union, min=eps)
+
+
+def iou_loss(predicted: torch.Tensor, target: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """SoftRas's IoU loss of a batch of silhouettes [B, H, W]:
+    1 - mean_b(sum(p t) / (sum(p + t - p t) + eps)), the sums over each
+    image's pixels."""
+    inter = torch.sum(predicted * target, dim=(1, 2))
+    union = torch.sum(predicted + target - predicted * target,
+                      dim=(1, 2)) + eps
+    return 1.0 - torch.mean(inter / union)
+
+
+def squared_laplacian_loss(vertices: torch.Tensor,
+                           edges: torch.Tensor) -> torch.Tensor:
+    """SoftRas's Laplacian loss, averaged over a batch of meshes.
+
+    For each mesh, sum_i ||v_i - mean_{j in N(i)} v_j||^2, N(i) the
+    vertices that share an edge with v_i (the squared form; the cow fit's
+    `laplacian_smoothing_loss` sums the norms unsquared over one mesh).
+
+    Args:
+      vertices: [B, V, 3] f32.
+      edges: [E, 2] int, each undirected edge once (such as
+        `mesh.compute_edge_wings(triangles)[:, :2]`).
+    """
+    lap = _uniform_laplacian(vertices, edges)
+    return torch.mean(torch.sum(lap * lap, dim=(1, 2)))
+
+
+def flatten_loss(vertices: torch.Tensor, wings: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """SoftRas's flatten loss, averaged over a batch of meshes.
+
+    For each mesh, sum over its edges (a, b) with opposite vertices c and
+    d of (cos theta + 1)^2, theta the angle between the two triangles'
+    heights from the edge (the components of c - a and d - a normal to
+    b - a): 0 where the two triangles lie flat, 4 where they fold onto
+    each other. `eps` enters where SoftRas's code adds it.
+
+    Args:
+      vertices: [B, V, 3] f32.
+      wings: [E, 4] int rows (a, b, c, d) (`mesh.compute_edge_wings`).
+    """
+    corners = gather(vertices, wings)  # [B, E, 4, 3]
+    v0, v1, v2, v3 = corners.unbind(2)
+    a = v1 - v0
+    a_l2 = torch.sum(a * a, dim=-1)
+    a_l1 = torch.sqrt(a_l2 + eps)
+
+    def height(b):
+        b_l2 = torch.sum(b * b, dim=-1)
+        b_l1 = torch.sqrt(b_l2 + eps)
+        ab = torch.sum(a * b, dim=-1)
+        cos = ab / (a_l1 * b_l1 + eps)
+        sin = torch.sqrt(1.0 - cos * cos + eps)
+        return b - a * (ab / (a_l2 + eps))[..., None], b_l1 * sin
+
+    h1, h1_l1 = height(v2 - v0)
+    h2, h2_l1 = height(v3 - v0)
+    cos = torch.sum(h1 * h2, dim=-1) / (h1_l1 * h2_l1 + eps)
+    return torch.mean(torch.sum((cos + 1.0) ** 2, dim=1))

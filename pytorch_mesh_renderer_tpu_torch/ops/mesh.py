@@ -300,3 +300,47 @@ def compute_edges_list(triangles) -> torch.Tensor:
         [tris[:, :2], tris[:, 1:], tris[:, ::2]], axis=0).reshape(-1, 2)
     edges = np.unique(edges, axis=0).astype(np.int32)
     return torch.from_numpy(edges).to(device)
+
+
+def compute_edge_wings(triangles) -> torch.Tensor:
+    """Each edge of a closed triangle mesh with the two triangles that
+    share it: rows (a, b, c, d), where (a, b) is the edge (a < b), c the
+    third vertex of the first triangle (in triangle order) that holds it
+    and d that of the second. The plan of the flatten loss
+    (`losses.flatten_loss`). Computed on the host, as `compute_edges_list`
+    is, so it belongs in a loss's setup, outside a captured step.
+
+    Args:
+      triangles: [triangle_count, 3] int tensor or array.
+
+    Returns:
+      [edge_count, 4] int32 tensor, edges sorted by (a, b), on the device
+      of `triangles` (the CPU for an array).
+
+    Raises:
+      ValueError: an edge borders one triangle or more than two (the mesh
+        is open or not a manifold).
+    """
+    if torch.is_tensor(triangles):
+        profiling.count("host_syncs.mesh_edges")
+        device, tris = triangles.device, triangles.cpu().numpy()
+    else:
+        device, tris = "cpu", np.asarray(triangles)
+    tris = tris.astype(np.int64)
+    # Corner k's opposite edge is (corner k + 1, corner k + 2).
+    ends = np.stack([tris[:, [1, 2]], tris[:, [2, 0]], tris[:, [0, 1]]], 1)
+    ends = np.sort(ends.reshape(-1, 2), axis=1)
+    opposite = tris.reshape(-1)
+    order = np.lexsort((np.arange(len(ends)), ends[:, 1], ends[:, 0]))
+    ends, opposite = ends[order], opposite[order]
+    edges, first, count = np.unique(ends, axis=0, return_index=True,
+                                    return_counts=True)
+    if np.any(count != 2):
+        bad = edges[count != 2][0]
+        raise ValueError(
+            f"edge ({bad[0]}, {bad[1]}) borders "
+            f"{int(count[count != 2][0])} triangles; every edge of a "
+            "closed mesh borders exactly two")
+    wings = np.concatenate([edges, opposite[first][:, None],
+                            opposite[first + 1][:, None]], 1)
+    return torch.from_numpy(wings.astype(np.int32)).to(device)

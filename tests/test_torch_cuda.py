@@ -72,6 +72,12 @@ backend specular shading and gradients into the lights take the plain ops
 and count `shade.unfused`; backend 'torch' never launches the pair and
 'cuda' raises for those calls.
 
+SoftRas's reconstruction step (`examples/recon.py`: a network trained
+through the silhouette kernels, a distinct mesh in each image) captures
+cuDNN's convolutions, BatchNorm and Adam with K5 and K6 into one graph:
+with cuDNN deterministic, its replays equal eager steps bit for bit, and
+its loader and replays read nothing on the host.
+
 The microbenchmark kernels (S1-S3, `microbench/`): fma, prod and
 patch_eval equal their plain versions bit for bit; the tensor-core
 variants are held at their modules' tolerances (`mxu_edge.TC_RTOL`,
@@ -1736,3 +1742,64 @@ def test_the_shading_follows_the_backend(dev):
     assert scale > 0.0
     assert float((grads["cuda"] - grads["torch"]).abs().max()) <= (
         1e-5 * scale)
+
+
+def _recon_images(objects, size):
+    """[objects, 24, 4, S, S] uint8: random colours, alpha a disc."""
+    g = torch.Generator().manual_seed(7)
+    rgb = torch.rand(objects, 24, 3, size, size, generator=g)
+    centre = torch.rand(objects, 24, 2, 1, 1, generator=g) * 0.4 - 0.2
+    radius = torch.rand(objects, 24, 1, 1, generator=g) * 0.3 + 0.3
+    c = (torch.arange(size) + 0.5) * 2 / size - 1
+    d2 = ((c[None, None, :, None] - centre[:, :, 0]) ** 2
+          + (c[None, None, None, :] - centre[:, :, 1]) ** 2)
+    alpha = (d2 < radius ** 2).to(torch.float32)[:, :, None]
+    return (torch.cat([rgb, alpha], 2) * 255).round().to(torch.uint8)
+
+
+def test_captured_recon_step_equals_eager_steps_and_never_syncs(dev):
+    """SoftRas's reconstruction step (`examples/recon.py`) at the
+    published widths, 8 objects a batch (32 silhouettes of 64^2), cuDNN
+    deterministic and TF32 off: the warm-up step and three captured
+    replays equal four `step.run_eager` calls on the same batches bit for
+    bit (losses, parameters, BatchNorm's statistics), and ten more loader
+    draws and replays add no `host_syncs.*` count."""
+    from pytorch_mesh_renderer_tpu_torch.examples import recon
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = _recon_images(6, 64)
+    try:
+        def run(captured):
+            torch.manual_seed(0)
+            net = recon.ReconstructionNet().to(dev)
+            loader = recon.Loader(images, recon.viewpoints(), 8, 5, dev)
+            trainer = recon.Reconstruction(net)
+            call = trainer if captured else trainer.step.run_eager
+            losses = torch.stack([call(loader()) for _ in range(4)])
+            torch.cuda.synchronize()
+            return (losses, {k: v.detach().clone()
+                             for k, v in net.state_dict().items()},
+                    trainer, loader)
+
+        captured, eager = run(True), run(False)
+        assert torch.equal(captured[0], eager[0])
+        for name, value in captured[1].items():
+            assert torch.equal(value, eager[1][name]), name
+        trainer, loader = captured[2], captured[3]
+        assert trainer.step.graph is not None
+        syncs = {k: n for k, n in profiling.counters().items()
+                 if k.startswith("host_syncs.")}
+        for _ in range(10):
+            loss = trainer(loader())
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss))
+        assert {k: n for k, n in profiling.counters().items()
+                if k.startswith("host_syncs.")} == syncs
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cuda.matmul.allow_tf32) = saved
